@@ -27,7 +27,7 @@ def make_dataloader(
     if mode1 not in ("clas", "seg"):
         raise SystemExit('Error: mode should be "clas", "detect" or "seg"')
     # registry lookup raises the reference's exact "model is incorrect"
-    # SystemExit for unknown names (flax modules are cheap dataclasses —
+    # SystemExit for unknown names (modules are cheap dataclasses —
     # no params are created here)
     kind = init_model(model_name, mode1, max_point=max_point).input_kind
     if kind == "voxel":

@@ -2,7 +2,7 @@
 
 Reference parity: ``PAPC/datasets/pnloader.py`` + ``datalist.py`` — same
 shard file lists, whole-split-in-RAM, shuffled fixed-size batches.
-Differences (deliberate, TPU-static-shape discipline):
+Differences (deliberate, static-shape discipline):
   * batches are channel-LAST ``[B, N, 3]`` (the reference transposes to
     ``[B, 3, N]`` for paddle convs — unnecessary here);
   * the final partial batch is padded up to ``batchsize`` with a validity
@@ -33,11 +33,23 @@ def _file_list(mode: str) -> list[str]:
     return {"train": TRAIN_LIST, "test": TEST_LIST}.get(mode, VAL_LIST)
 
 
+def _h5py():
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(
+            "ShapeNet .h5 files need the h5py package, which is not "
+            "installed; train from in-memory batches "
+            "(papc_tpu.data.synthetic.make_batch) or install h5py"
+        ) from e
+    return h5py
+
+
 def load_split(
     path: str, mode: str, max_point: int, with_pid: bool = False
 ):
     """Read every shard of a split into RAM. Returns (data, label[, pid])."""
-    import h5py
+    h5py = _h5py()
 
     datas, labels, pids = [], [], []
     for fname in _file_list(mode):

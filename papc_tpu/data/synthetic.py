@@ -36,6 +36,23 @@ def _make_cloud(rng, label: int, n_points: int, num_classes: int):
     return pts.astype(np.float32), octant.astype(np.int32)
 
 
+def make_batch(
+    batch: int, n_points: int, num_classes: int, seed: int = 0
+) -> dict:
+    """One in-memory classification batch of :func:`_make_cloud` clouds:
+    ``points [B, N, 3]`` f32, ``label [B]`` i32, ``mask [B]`` bool."""
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(num_classes, size=batch).astype(np.int32)
+    points = np.stack(
+        [_make_cloud(rng, int(y), n_points, num_classes)[0] for y in labels]
+    )
+    return {
+        "points": points,
+        "label": labels,
+        "mask": np.ones((batch,), bool),
+    }
+
+
 def write_shapenet_h5(
     path: str,
     *,
@@ -52,7 +69,9 @@ def write_shapenet_h5(
     Every shard file of the reference's fixed file lists is created (train
     samples are split over the 6 train shards, etc.).
     """
-    import h5py
+    from papc_tpu.data.shapenet import _h5py
+
+    h5py = _h5py()
 
     os.makedirs(path, exist_ok=True)
     rng = np.random.RandomState(seed)

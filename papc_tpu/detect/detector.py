@@ -128,7 +128,7 @@ def compute_loss_bac(
     This is the direct transcription of the reference's ``create_loss``
     (``detectors/pointpillars.py:508-549``) and serves as the layout
     ORACLE for :func:`compute_loss` (the production path, which runs the
-    same math in the TPU-friendly ``[B, C, A]`` layout). Keep byte-level
+    same math in the ``[B, C, A]`` layout). Keep byte-level
     semantics in sync; ``tests/test_detect_model.py`` asserts parity.
 
     Returns (total_loss, metrics_dict)."""
@@ -221,12 +221,10 @@ def compute_loss(
 
     Same math as :func:`compute_loss_bac` (the reference-layout oracle,
     ``detectors/pointpillars.py:508-549``) but computed in the
-    channel-sublane layout ``[B, C, A]``: the small channel dims
-    (code=7, ncls, 2) ride the 8-wide sublane axis while the anchor dim
-    rides the 128-wide lane axis. In ``[B, A, C]`` form every loss
-    tensor is lane-padded C→128 (18× HBM traffic for code=7, 128× for
-    ncls=1), which made the loss ~2.5 ms of the r4 32.6 ms PointPillars
-    step; results differ from the oracle only by reduction order.
+    channel-major layout ``[B, C, A]``, with the anchor dim minor
+    instead of the small channel dims (code=7, ncls, 2) — a layout
+    choice of the earlier accelerator build whose A/B on the GPU is
+    pending; results differ from the oracle only by reduction order.
 
     Returns (total_loss, metrics_dict)."""
     B, A = labels.shape
@@ -248,7 +246,7 @@ def compute_loss(
     )
     cls_targets = labels * cared.astype(labels.dtype)
     # one-hot with background dropped (encode_background_as_zeros) is
-    # (cls_targets == c) over the sublane class axis
+    # (cls_targets == c) over the class axis
     first_cls = 1 if cfg.encode_background_as_zeros else 0
     cls_ids = jnp.arange(first_cls, first_cls + ncls)[None, :, None]
     one_hot = (cls_targets[:, None, :] == cls_ids).astype(
@@ -262,7 +260,7 @@ def compute_loss(
         bp = jnp.concatenate([bp[:, :-1, :], rad_pred], axis=1)
         rt = jnp.concatenate([rt[:, :-1, :], rad_tg], axis=1)
 
-    # smooth-L1 over the sublane code axis
+    # smooth-L1 over the code axis
     diff = jnp.asarray(list(cfg.code_weights))[None, :, None] * (bp - rt)
     abs_diff = jnp.abs(diff)
     cut = 1.0 / (cfg.smooth_l1_sigma**2)
@@ -272,7 +270,7 @@ def compute_loss(
         + (abs_diff - 0.5 * cut) * (1.0 - lt)
     ) * reg_weights[:, None, :]
 
-    # sigmoid focal over the sublane class axis
+    # sigmoid focal over the class axis
     ce = L.sigmoid_cross_entropy_with_logits(cls_preds, one_hot)
     prob = jax.nn.sigmoid(cls_preds)
     p_t = one_hot * prob + (1 - one_hot) * (1 - prob)
@@ -416,8 +414,6 @@ def predict(
         ok = top_s > 0
         bev = b[:, jnp.asarray([0, 1, 3, 4, 6])]
         if cfg.use_rotate_nms:
-            # auto-dispatches to the fused matrix-free Pallas sweep on
-            # TPU (papc_tpu.ops.pallas.nms.rotate_nms_pallas)
             keep = rotate_nms(bev, ok, cfg.nms_iou_threshold)
         else:
             corners = box5_to_corners(bev)

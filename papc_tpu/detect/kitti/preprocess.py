@@ -4,7 +4,7 @@ Reference parity: ``data/preprocess.py`` — ``prep_pointcloud`` (:45-303),
 ``_read_and_prep_v9`` (:306-363), ``merge_second_batch`` (:16-42) and
 ``data/dataset.py`` (KittiDataset with pre-generated anchor cache).
 
-TPU-native difference: every sample is emitted at STATIC shape
+Difference from the reference: every sample is emitted at STATIC shape
 (``max_voxels`` padded voxel arrays) and the collate stacks ``[B, ...]``
 tensors — the reference concatenates ragged voxel lists and pads a
 batch-index into the coordinates, which forces dynamic shapes downstream.

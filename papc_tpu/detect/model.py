@@ -1,10 +1,11 @@
-"""PointPillars network (Flax linen, channel-last, batched static shapes).
+"""PointPillars network (:mod:`papc_tpu.nn.core`, channel-last, batched
+static shapes).
 
 Reference parity: ``models/bones/pillars.py`` (PFNLayer, PillarFeatureNet,
 PointPillarsScatter), ``models/bones/rpn.py`` (SECOND-style 3-block RPN),
 ``models/detectors/pointpillars.py`` (loss preparation).
 
-TPU-native differences:
+Differences from the reference:
   * pillars are batched per sample ``[B, V, P, D]`` (the reference flattens
     the batch into one voxel list with a batch-index coordinate column);
   * the scatter is ONE flat indexed-set over batch-folded rows instead
@@ -18,8 +19,8 @@ from typing import Sequence
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
 
+from papc_tpu.nn import core as nn
 from papc_tpu.ops.voxelize import (
     scatter_to_bev_batched,
     scatter_to_bev_s2d,
@@ -29,23 +30,16 @@ PFN_BN = dict(momentum=0.01, epsilon=1e-3)
 
 # Deferred-upsample internal layout (see RPN): True runs the deconv→
 # BN→ReLU→head segment on flattened-minor [b, h, w, s²·F] tensors —
-# one aligned matmul per stage — instead of 6-D [b, h, w, p, q, F]
-# maps whose tiny q sublane dim (2 or 4) tile-pads to 8. MEASURED
-# LOSS on the composed scanned step (experiments/ab_flatminor.log,
-# interleaved k-slope, BN-stats fix riding both arms): flat 16.34 /
-# six 15.55 ms bf16, flat 20.28 / six 19.75 f32 — the block-diagonal
-# head matmul + tiled-BN broadcasts cost more than the 6-D padding
-# saves. Kept parity-tested (tests/test_s2d.py) as the record.
+# one matmul per stage — instead of 6-D [b, h, w, p, q, F] maps whose
+# small q axis is minor-but-one. Kept parity-tested (tests/test_s2d.py)
+# until its A/B on the GPU.
 DEFERRED_FLAT_MINOR = False
 
-# flax BatchNorm(dtype=None) PROMOTES its output to f32 (running stats
-# are f32), so under bf16 compute every classic BN re-inflated the
-# activation stream — and every conv downstream of it — back to f32
-# traffic (cost_analysis r5: 2.8 GB of f32[.,.,.,128] in ConvBlock_1
-# alone). dtype=x.dtype keeps the normalize output in the compute
-# dtype; stats/running averages stay f32 either way (flax computes
-# them in f32 unconditionally). Module-level so ab_bn_dtype.py can A/B
-# the two behaviors in one process. No effect in f32 mode.
+# BatchNorm(dtype=None) PROMOTES its output to f32 (running stats are
+# f32), so under bf16 compute every BN would re-inflate the activation
+# stream — and every conv downstream of it — back to f32 traffic.
+# dtype=x.dtype keeps the normalize output in the compute dtype;
+# stats/running averages stay f32 either way. No effect in f32 mode.
 BN_DTYPE_FOLLOWS_INPUT = True
 
 
@@ -53,21 +47,90 @@ def _bn_dtype(x):
     return x.dtype if BN_DTYPE_FOLLOWS_INPUT else None
 
 
+class _DenseParams(nn.Module):
+    """Parameter-only twin of ``nn.Dense`` (same names, shapes, inits)
+    so the flat-points PFN keeps the classic PFN's param tree.
+    ``use_bias=False`` mirrors ``nn.Dense(use_bias=False)`` (no bias
+    param) and returns zeros."""
+
+    features: int
+    in_features: int
+    use_bias: bool = True
+
+    @nn.compact
+    def __call__(self):
+        kernel = self.param(
+            "kernel",
+            nn.initializers.lecun_normal(),
+            (self.in_features, self.features),
+        )
+        if self.use_bias:
+            bias = self.param(
+                "bias", nn.initializers.zeros_init(), (self.features,)
+            )
+        else:
+            bias = jnp.zeros((self.features,), jnp.float32)
+        return kernel, bias
+
+
+class _BNParams(nn.Module):
+    """Parameter/stats-only twin of ``nn.BatchNorm`` (same tree)."""
+
+    features: int
+
+    @nn.compact
+    def __call__(self):
+        scale = self.param(
+            "scale", nn.initializers.ones_init(), (self.features,)
+        )
+        bias = self.param(
+            "bias", nn.initializers.zeros_init(), (self.features,)
+        )
+        ra_mean = self.variable(
+            "batch_stats",
+            "mean",
+            lambda s: jnp.zeros(s, jnp.float32),
+            (self.features,),
+        )
+        ra_var = self.variable(
+            "batch_stats",
+            "var",
+            lambda s: jnp.ones(s, jnp.float32),
+            (self.features,),
+        )
+        return scale, bias, ra_mean, ra_var
+
+
+class _Conv2dParams(nn.Module):
+    """Parameter-only twin of ``nn.Conv`` (same names, shapes, inits) so
+    the RPN's space-to-depth branch can keep the reference-shaped
+    ``[3, 3, C, O]`` kernel in the param tree while running the expanded
+    stride-1 twin (``ops.s2d.expand_stride2_kernel``)."""
+
+    features: int
+    in_features: int
+    kernel_size: tuple = (3, 3)
+    use_bias: bool = True
+
+    @nn.compact
+    def __call__(self):
+        kernel = self.param(
+            "kernel",
+            nn.initializers.lecun_normal(),
+            (*self.kernel_size, self.in_features, self.features),
+        )
+        if self.use_bias:
+            bias = self.param(
+                "bias", nn.initializers.zeros_init(), (self.features,)
+            )
+        else:
+            bias = None
+        return kernel, bias
+
+
 class PFNLayer(nn.Module):
     """Linear(no bias)→BN→ReLU→max over points; non-final layers concat
-    the max back per point (reference ``pillars.py:9-41``).
-
-    The final layer is the Dense→BN→ReLU→max chain the fused SA-MLP
-    block (:mod:`papc_tpu.ops.fused_mlp`) was built for, and at the
-    production pillar workload ([2, 12000, 100, 9→64]) the op-by-op
-    program's BatchNorm broadcasts dominate the step's HBM traffic
-    (~20 of 33 GB/step in the compiled HLO). The fused route was
-    measured anyway to LOSE on chip (interleaved scanned-step A/B,
-    r4: fused 41.7 ms vs classic 32.5 ms fp32) — at m = B·V·P ≈ 2.4M
-    rows the pass suite pays ~1200 Mosaic grid steps × ~6 µs × passes,
-    which swamps the HBM saving — so the default is the classic
-    op-by-op branch; ``fused_mlp.override(enable=True)`` re-enables
-    the fused route (same params/stats tree either way) for A/Bs."""
+    the max back per point (reference ``pillars.py:9-41``)."""
 
     units: int
     last_layer: bool = False
@@ -75,40 +138,8 @@ class PFNLayer(nn.Module):
 
     @nn.compact
     def __call__(self, x: jax.Array, train: bool = True) -> jax.Array:
-        from papc_tpu.nn.layers import _BNParams, _DenseParams
-        from papc_tpu.ops import fused_mlp
-
         # x: [B, V, P, C]
         units = self.units if self.last_layer else self.units // 2
-        use_fused = (
-            self.last_layer
-            and self.use_norm
-            and not self.is_initializing()
-            # PFN opts IN only under an explicit override: measured
-            # slower than classic at production shape (see class doc)
-            and fused_mlp.override_enabled()
-            and fused_mlp.enabled(x.shape, (units,))
-        )
-        if use_fused:
-            # param-twin modules pick up the SAME subtree the classic
-            # branch creates (child names match; no-bias Dense)
-            kernel, dbias = _DenseParams(
-                units, x.shape[-1], use_bias=False, name="Dense_0"
-            )()
-            scale, bbias, rm, rv = _BNParams(units, name="BatchNorm_0")()
-            out, new_running = fused_mlp.fused_mlp_max(
-                x,
-                ((kernel, dbias, scale, bbias),),
-                ((rm.value, rv.value),),
-                train=train,
-                momentum=PFN_BN["momentum"],
-                eps=PFN_BN["epsilon"],
-                **fused_mlp.call_opts(),
-            )
-            if train:
-                rm.value, rv.value = new_running[0]
-            return out[:, :, None, :]  # [B, V, 1, units]
-
         x = nn.Dense(
             units, use_bias=not self.use_norm, name="Dense_0"
         )(x)
@@ -213,8 +244,6 @@ class PillarFeatureNetFlat(nn.Module):
         train: bool = True,
     ) -> jax.Array:
         from papc_tpu.detect.pfn_fast import pfn_forward_flat
-        from papc_tpu.nn.layers import _BNParams, _DenseParams
-
         if len(self.num_filters) != 1 or not self.use_norm:
             raise NotImplementedError(
                 "flat PFN covers the production single-layer/BN config; "
@@ -296,21 +325,15 @@ class _ConvBlock(nn.Module):
     ``s2d_input=True`` takes the space-to-depth BEV canvas
     ``[B, H/2+1, W/2+1, 4C]`` instead of ``[B, H, W, C]`` and runs the
     opening stride-2 3x3 conv as its stride-1 2x2 VALID twin
-    (:mod:`papc_tpu.ops.s2d` — the strided backward is a measured 1.7x
-    pathology on TPU). The param tree keeps the reference-shaped
+    (:mod:`papc_tpu.ops.s2d`). The param tree keeps the reference-shaped
     ``[3, 3, C, O]`` kernel either way.
 
     ``batch_fold=True`` runs the post-opening Conv→BN→ReLU chain on the
     batch-FOLDED map ``[1, H, W, B*F]`` (batch stacked on channels, via
     :func:`_kron_eye_kernel` block-diagonal kernels and fold-pooled BN
-    stats). For F < 128 the minor axis of every activation otherwise
-    lane-pads F→128, so half of each (8, 128) tile — and half the HBM
-    traffic of the whole chain, fwd and bwd — is padding; the fold
-    trades that for (half-zero) extra MXU work on an op that measures
-    byte-bound (profile_conv64: 64-ch SAME conv fwd+bwd equal f32 vs
-    bf16 at ~0.57 ms). Exact math; same param tree (twin modules);
-    zero-padding the channels instead was measured to LOSE
-    (profile_conv64 csp/cpp) because it leaves the tile count alone."""
+    stats), so a narrow F < 128 channel axis becomes a B·F-wide one at
+    the price of (half-zero) extra matmul work. Exact math; same param
+    tree (twin modules)."""
 
     filters: int
     n_layers: int
@@ -339,7 +362,6 @@ class _ConvBlock(nn.Module):
         if self.s2d_input:
             if self.stride != 2:
                 raise ValueError("s2d_input requires stride 2")
-            from papc_tpu.nn.layers import _Conv2dParams
             from papc_tpu.ops.s2d import expand_stride2_kernel
 
             kernel, cbias = _Conv2dParams(
@@ -380,10 +402,8 @@ class _ConvBlock(nn.Module):
         """BN_0→ReLU + the n same-padding Conv→BN→ReLU layers on the
         batch-folded ``[1, H, W, B*F]`` map (see class docstring).
         Exact: block-diagonal kernels, BN stats pooled across the fold
-        groups per logical channel (the same element set flax reduces),
+        groups per logical channel (the same element set BatchNorm reduces),
         shared Conv_i/BatchNorm_i param tree via the twin modules."""
-        from papc_tpu.nn.layers import _BNParams, _Conv2dParams
-
         b, h, w, f = x.shape
         xf = x.transpose(1, 2, 0, 3).reshape(1, h, w, b * f)
 
@@ -391,10 +411,9 @@ class _ConvBlock(nn.Module):
             scale, bias, rm, rv = _BNParams(f, name=f"BatchNorm_{i}")()
             # per-(b·f)-channel moments over the NATIVE [1, h, w, b*f]
             # layout, then pool the b fold groups on the tiny [b, f]
-            # tail — reshaping the map to [h, w, b, f] first splits the
-            # lane axis (128 → 2×64) and forces a full f32 relayout of
-            # every BN input, fwd and bwd (~110 MB/pass at the KITTI
-            # shape). Equal-count groups make the pooled moments exact.
+            # tail, without reshaping the map to [h, w, b, f] (a full
+            # f32 relayout of every BN input, fwd and bwd). Equal-count
+            # groups make the pooled moments exact.
             zf = z.astype(jnp.float32)
             s1 = jnp.mean(zf, (0, 1, 2))  # [b*f]
             s2 = jnp.mean(jnp.square(zf), (0, 1, 2))  # [b*f]
@@ -518,8 +537,6 @@ class RPN(nn.Module):
             s = self.upsample_strides[i]
             f_up = self.num_upsample_filters[i]
             if deferred:
-                from papc_tpu.nn.layers import _BNParams, _Conv2dParams
-
                 kt, _ = _Conv2dParams(
                     f_up, x.shape[-1], kernel_size=(s, s),
                     use_bias=False, name=f"ConvTranspose_{i}",
@@ -529,9 +546,8 @@ class RPN(nn.Module):
                 # (lax.conv_transpose applies the kernel mirrored)
                 km = kt[::-1, ::-1].astype(x.dtype)  # [s, s, c, f_up]
                 if DEFERRED_FLAT_MINOR:
-                    # flattened-minor [b, h, w, (p, q, o)]: one aligned
-                    # matmul; the 6-D form's q sublane dim (2 or 4)
-                    # tile-pads to 8 on every buffer (see toggle doc)
+                    # flattened-minor [b, h, w, (p, q, o)]: one matmul
+                    # (see toggle doc)
                     w2 = km.transpose(2, 0, 1, 3).reshape(
                         x.shape[-1], s * s * f_up
                     )
@@ -545,8 +561,8 @@ class RPN(nn.Module):
                     # per-channel moments over the leading axes in the
                     # NATIVE layout, then pool the s² phase groups on
                     # the tiny [s², f_up] tail (reshape(-1, f_up) first
-                    # would split the lane axis and relayout the whole
-                    # f32 buffer). Equal-count groups → pooling exact.
+                    # would relayout the whole f32 buffer). Equal-count
+                    # groups → pooling exact.
                     zf = z.astype(jnp.float32)
                     axes = tuple(range(zf.ndim - 1))
                     s1 = jnp.mean(zf, axes)
@@ -590,13 +606,9 @@ class RPN(nn.Module):
         )
         # ONE fused 1x1 head conv instead of three: each separate head
         # re-reads the upsample-concat map forward AND emits its own
-        # [B, H, W, 384] input-grad backward (the adds alone were
-        # ~0.5 GB of step traffic, cost_analysis_step r4). Param tree
-        # keeps the reference's three Conv_0/1/2 (same names/shapes/
-        # init — flax param RNG is path-derived), weights concatenated
-        # at apply time.
-        from papc_tpu.nn.layers import _Conv2dParams
-
+        # [B, H, W, 384] input-grad backward. Param tree keeps the
+        # reference's three Conv_0/1/2 (same names/shapes/init),
+        # weights concatenated at apply time.
         cin = sum(self.num_upsample_filters)
         n_box = self.num_anchor_per_loc * self.box_code_size
         n_dir = self.num_anchor_per_loc * 2
@@ -629,10 +641,8 @@ class RPN(nn.Module):
                 off += f_up
                 if DEFERRED_FLAT_MINOR:
                     # block-diagonal head over the s² phase groups:
-                    # ONE aligned [s²·f_up → s²·O] matmul on the
-                    # flattened-minor act (the s²× zero blocks are
-                    # ~0.05 ms of MXU work; the 6-D einsum's padded
-                    # y buffers cost more in bytes)
+                    # ONE [s²·f_up → s²·O] matmul on the
+                    # flattened-minor act
                     O_ = wi.shape[-1]
                     e = jnp.eye(s * s, dtype=wi.dtype)
                     wbd = (

@@ -3,13 +3,11 @@
 Reference parity: same math as ``PillarFeatureNet`` + one ``PFNLayer``
 (``models/bones/pillars.py:9-108``) — decorate points with cluster/center
 offsets, mask padded slots, Linear(no bias) -> BatchNorm -> ReLU -> max
-over points — but computed TPU-first:
+over points — but computed in another layout:
 
-* **Layout** ``[B, D, V, P]``: the point axis P rides the 128-wide lane
-  dim and the tiny feature axis D (9/10) rides a leading dim, instead of
-  the classic ``[B, V, P, D]`` whose minor D=9 is lane-padded to 128
-  (a ~14x HBM inflation on every touch of the 2.4M-row tensor; measured
-  5.35 ms of the 32.6 ms r4 PointPillars step for PFN fwd+bwd alone).
+* **Layout** ``[B, D, V, P]``: the point axis P is minor and the tiny
+  feature axis D (9/10) rides a leading dim, instead of the classic
+  ``[B, V, P, D]`` with a minor axis of 9.
 
 * **BN folded into the Dense**: BatchNorm statistics of ``h = W f`` are
   derived WITHOUT materializing ``h`` —
@@ -28,12 +26,9 @@ Centering before the second moment (``Cov = E[(f-mu)(f-mu)^T]`` rather
 than ``E[ff^T] - mu mu^T``) avoids the classic catastrophic cancellation;
 the stats matmuls run at ``Precision.HIGHEST`` (trivial FLOPs).
 
-MEASURED RESULT (r4, ``experiments/ab_pfn_t.py``): the transposed
-``pfn_forward_t`` LOSES badly on chip — 77.1 ms vs 5.37 ms classic
-(f32 fwd+bwd, interleaved scan-slope). Merging ``(V, P)`` into one
-1.2M-wide lane axis forces XLA retilings of every big intermediate
-that swamp the layout saving. It is kept as the parity-tested record
-of the experiment; the production fast path is
+The transposed ``pfn_forward_t`` lost to the classic layout in the
+earlier accelerator build's A/B and is kept as the parity-tested record of that
+experiment (not measured on the GPU); the production fast path is
 :func:`pfn_forward_flat` below, which removes the padded slots
 instead of re-laying them out.
 
@@ -42,7 +37,7 @@ they contribute ``relu(b')`` to the max — byte-identical semantics to
 the classic PFNLayer, whose BN also sees the padded zeros
 (``pillars.py:30-40``). Running stats follow the same
 ``momentum * ra + (1 - momentum) * batch`` update as
-``flax.linen.BatchNorm`` / ``ops.fused_mlp``.
+:class:`papc_tpu.nn.core.BatchNorm`.
 """
 
 from __future__ import annotations

@@ -5,13 +5,18 @@ Reference analog: the TensorRT-export staging helpers in
 (``voxel_padding``, ``example_to_tensorlist``/``example_to_tensorlist_infer``)
 whose whole job is forcing fixed tensor shapes so an inference engine can
 be built. In this framework every jitted path is static-shape by
-construction, so the TPU-native equivalent is a single ``jax.export``
+construction, so the equivalent here is a single ``jax.export``
 call: the forward function — with the trained variables frozen in as
 constants — lowers to portable StableHLO bytes that a serving process
 reloads and runs without any model Python.
 
 Artifacts are plain files (``*.stablehlo``) and survive process/version
-boundaries per StableHLO's compatibility guarantees.
+boundaries per StableHLO's compatibility guarantees — except the
+Pallas-Triton kernels in the CUDA lowering (FPS, see
+:mod:`papc_tpu.ops.pallas.fps`), whose Triton IR is only guaranteed to
+load under the JAX version that wrote it. Each platform's lowering
+carries its own branch of ``lax.platform_dependent``, so the CPU
+lowering holds no kernel.
 """
 
 from __future__ import annotations
@@ -22,7 +27,9 @@ from typing import Callable, Sequence
 import jax
 from jax import export as _jexport
 
-DEFAULT_PLATFORMS = ("tpu", "cpu")
+DEFAULT_PLATFORMS = ("cuda", "cpu")
+# custom-call targets that carry no cross-version compatibility promise
+_UNSTABLE_TARGETS = ("__gpu$xla.gpu.triton",)
 
 
 def _specs_of(args) -> tuple:
@@ -43,12 +50,17 @@ def export_fn(
     ``fn`` should close over its trained variables (frozen-graph export —
     the serving analog of a built TensorRT engine). ``example_args`` fix
     the static shapes; only shape/dtype are read. Multi-platform
-    lowering (default tpu+cpu) lets one artifact serve on a chip and in
+    lowering (default cuda+cpu) lets one artifact serve on a GPU and in
     CPU integration tests alike.
     """
-    exp = _jexport.export(jax.jit(fn), platforms=list(platforms))(
-        *_specs_of(example_args)
-    )
+    exp = _jexport.export(
+        jax.jit(fn),
+        platforms=list(platforms),
+        disabled_checks=[
+            _jexport.DisabledSafetyCheck.custom_call(t)
+            for t in _UNSTABLE_TARGETS
+        ],
+    )(*_specs_of(example_args))
     data = exp.serialize()
     if path is not None:
         tmp = path + ".tmp"

@@ -7,11 +7,9 @@ levels halving 1024→1 leaf groups with per-level feature widths
 Each kdconv: Dense to ``3*featdim`` channels (one feature bank per split
 axis), select the bank matching each position's kd split dimension, then
 max-pool sibling pairs. The select is a 3-way masked sum over the bank
-axis — NOT a ``take_along_axis``: a batched gather is the documented
-TPU pathology (minute-long compiles, serialized emitters; CLAUDE.md),
-and with only 3 banks the mask form is 3 fused selects (r5: the
-batched-gather form measured 58.7 ms/step for the whole KDNet train
-step in BENCH zoo rows — the selects were nearly all of it).
+axis — NOT a ``take_along_axis``: with only 3 banks the mask form is
+3 fused selects, where a batched gather (and its scatter backward)
+compiles to much heavier code.
 
 Deviation (documented): the reference flattens ``[3, dim]`` and indexes it
 with ``split + 3*arange(dim)`` (``kdnet.py:27-28``) which scrambles
@@ -26,7 +24,8 @@ from typing import Sequence
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+
+from papc_tpu.nn import core as nn
 
 KDNET_WIDTHS = (32, 64, 64, 128, 128, 256, 256, 512, 512, 128)
 

@@ -3,16 +3,16 @@
 Reference parity: ``PAPC/models/classify/pointnet/pointnet_Conv1D.py``
 (input T-Net 3x3 with identity-init, mlp 3→64→64, feature T-Net 64x64,
 mlp 64→64→128→1024, global max, FC 1024→512→256→Dropout(0.7)→classes).
-The T-Net matmul transforms are batched ``[B,N,k] @ [B,k,k]`` einsums —
-straight MXU work; no layout transposes are needed in channel-last form.
+The T-Net matmul transforms are batched ``[B,N,k] @ [B,k,k]`` einsums;
+no layout transposes are needed in channel-last form.
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
 
+from papc_tpu.nn import core as nn
 from papc_tpu.nn import MLPHead, PointMLP, TNet, global_max_pool
 
 

@@ -9,8 +9,8 @@ MSG: two multi-scale SA stages then group_all).
 from __future__ import annotations
 
 import jax
-from flax import linen as nn
 
+from papc_tpu.nn import core as nn
 from papc_tpu.nn import MLPHead, SetAbstraction, SetAbstractionMsg
 
 

@@ -9,8 +9,8 @@ stacks become Dense stacks over the point cloud's feature axis.
 from __future__ import annotations
 
 import jax
-from flax import linen as nn
 
+from papc_tpu.nn import core as nn
 from papc_tpu.nn import MLPHead, PointMLP, global_max_pool
 
 

@@ -9,8 +9,8 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
 
+from papc_tpu.nn import core as nn
 from papc_tpu.nn import MLPHead, PointMLP, global_max_pool
 
 

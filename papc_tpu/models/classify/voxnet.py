@@ -2,15 +2,14 @@
 
 Reference parity: ``PAPC/models/classify/voxnet/voxnet.py``
 (Conv3D(1→32,k5,s2)+BN+LeakyReLU → Conv3D(32→32,k3)+MaxPool3D(2) →
-FC 32·6^3→128→LeakyReLU→Dropout(0.2)→classes). Channel-last NDHWC — the
-native XLA conv layout on TPU.
+FC 32·6^3→128→LeakyReLU→Dropout(0.2)→classes). Channel-last NDHWC.
 """
 
 from __future__ import annotations
 
 import jax
-from flax import linen as nn
 
+from papc_tpu.nn import core as nn
 from papc_tpu.nn.layers import BN_EPS, BN_MOMENTUM
 
 

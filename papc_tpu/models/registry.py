@@ -1,4 +1,4 @@
-"""Model registry: (model_name, mode) → Flax module + input kind.
+"""Model registry: (model_name, mode) → model module + input kind.
 
 Mirrors the reference trainer's ``init_model`` dispatch table
 (``PAPC/train.py:8-60``): the same 13 model/mode combos, same default
@@ -18,8 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from flax import linen as nn
-
+from papc_tpu.nn import core as nn
 from papc_tpu.models import classify, segment
 
 

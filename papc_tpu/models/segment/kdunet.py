@@ -12,8 +12,8 @@ from typing import Sequence
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
 
+from papc_tpu.nn import core as nn
 from papc_tpu.models.classify.kdnet import KDConv
 from papc_tpu.nn import PointMLP
 

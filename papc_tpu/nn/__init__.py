@@ -1,5 +1,5 @@
-"""papc_tpu.nn — Flax module library: shared-MLP blocks, T-Nets,
-PointNet++ set-abstraction/propagation layers."""
+"""papc_tpu.nn — modules on the in-repo linen subset (`core`): shared-MLP
+blocks, T-Nets, PointNet++ set-abstraction/propagation layers."""
 
 from papc_tpu.nn.layers import (
     BN_EPS,

@@ -1,13 +1,12 @@
-"""Shared building-block modules (Flax linen).
+"""Shared building-block modules (:mod:`papc_tpu.nn.core`).
 
 The reference expresses per-point MLPs as paddle ``Conv1D(kernel=1)`` /
-``Conv2D(1x1)`` stacks over a channel-first layout. On TPU a 1x1 conv IS a
+``Conv2D(1x1)`` stacks over a channel-first layout. A 1x1 conv IS a
 matmul, so here every shared MLP is a ``nn.Dense`` over the LAST axis of a
-channel-last tensor — it lowers straight onto the MXU with the channel axis
-on the 128-wide lane dimension, and XLA fuses the BN + ReLU into the matmul
-epilogue.
+channel-last tensor — one GEMM per layer, with XLA fusing the BN + ReLU
+chains around it.
 
-Parameter registration is by construction (linen module trees), fixing the
+Parameter registration is by construction (module trees), fixing the
 reference's unregistered-params bug (its SA layers keep convs in plain
 python lists — ``pointnet2_basic_layers.py:185-191`` — so those weights
 never train).
@@ -19,94 +18,13 @@ from typing import Sequence
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+
+from papc_tpu.nn import core as nn
 
 # Paddle nn.BatchNorm defaults (momentum=0.9, epsilon=1e-5) — kept for
 # training-dynamics parity with the reference.
 BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
-
-
-class _DenseParams(nn.Module):
-    """Parameter-only twin of ``nn.Dense`` (same names, shapes, inits)
-    so :class:`PointMLP` (and the detection PFN) can route compute
-    through either the classic per-op path or the fused Pallas block
-    while keeping ONE param tree. ``use_bias=False`` mirrors
-    ``nn.Dense(use_bias=False)`` (no bias param) and returns zeros."""
-
-    features: int
-    in_features: int
-    use_bias: bool = True
-
-    @nn.compact
-    def __call__(self):
-        kernel = self.param(
-            "kernel",
-            nn.initializers.lecun_normal(),
-            (self.in_features, self.features),
-        )
-        if self.use_bias:
-            bias = self.param(
-                "bias", nn.initializers.zeros_init(), (self.features,)
-            )
-        else:
-            bias = jnp.zeros((self.features,), jnp.float32)
-        return kernel, bias
-
-
-class _BNParams(nn.Module):
-    """Parameter/stats-only twin of ``nn.BatchNorm`` (same tree)."""
-
-    features: int
-
-    @nn.compact
-    def __call__(self):
-        scale = self.param(
-            "scale", nn.initializers.ones_init(), (self.features,)
-        )
-        bias = self.param(
-            "bias", nn.initializers.zeros_init(), (self.features,)
-        )
-        ra_mean = self.variable(
-            "batch_stats",
-            "mean",
-            lambda s: jnp.zeros(s, jnp.float32),
-            (self.features,),
-        )
-        ra_var = self.variable(
-            "batch_stats",
-            "var",
-            lambda s: jnp.ones(s, jnp.float32),
-            (self.features,),
-        )
-        return scale, bias, ra_mean, ra_var
-
-
-class _Conv2dParams(nn.Module):
-    """Parameter-only twin of ``nn.Conv`` (same names, shapes, inits) so
-    the RPN's space-to-depth branch can keep the reference-shaped
-    ``[3, 3, C, O]`` kernel in the param tree while running the expanded
-    stride-1 twin (``ops.s2d.expand_stride2_kernel``)."""
-
-    features: int
-    in_features: int
-    kernel_size: tuple = (3, 3)
-    use_bias: bool = True
-
-    @nn.compact
-    def __call__(self):
-        kernel = self.param(
-            "kernel",
-            nn.initializers.lecun_normal(),
-            (*self.kernel_size, self.in_features, self.features),
-        )
-        if self.use_bias:
-            bias = self.param(
-                "bias", nn.initializers.zeros_init(), (self.features,)
-            )
-        else:
-            bias = None
-        return kernel, bias
 
 
 class PointMLP(nn.Module):
@@ -119,12 +37,7 @@ class PointMLP(nn.Module):
 
     ``pool_max=True`` additionally takes the max over axis 2 (the
     K-neighborhood axis of a grouped ``[B, S, K, C]`` tensor) — the SA
-    symmetric function. On TPU that enables the fused multi-pass Pallas
-    block (:mod:`papc_tpu.ops.fused_mlp`), which keeps each tile's
-    Dense→BN→ReLU chain in VMEM instead of materializing every
-    pre-activation / stats pass / normalized copy to HBM (the op-by-op
-    program runs at its own HBM roofline — see the kernel docstring).
-    Parameters and BatchNorm semantics are identical on every path.
+    symmetric function.
 
     Input: ``[..., C_in]`` → Output: ``[..., features[-1]]``
     (``[B, S, C_out]`` when ``pool_max``).
@@ -134,61 +47,8 @@ class PointMLP(nn.Module):
     pool_max: bool = False
 
     @nn.compact
-    def __call__(self, x: jax.Array, train: bool = True,
-                 transposed_k: int | None = None) -> jax.Array:
-        from papc_tpu.ops import fused_mlp
-
-        feats = tuple(self.features)
-        if transposed_k is not None:
-            # x is channel-sublane [B, C0, S*K] (the sample_and_group_t
-            # layout); the fused path consumes it directly, the classic
-            # fallback (CPU / init / tiny shapes) transposes back
-            assert self.pool_max, "transposed input implies pool_max"
-            use_fused_t = (
-                not self.is_initializing()
-                and fused_mlp.enabled_t(x.shape, transposed_k, feats)
-            )
-            if use_fused_t:
-                params, stats = self._twin_params(x.shape[1], feats)
-                running = tuple(
-                    (rm.value, rv.value) for rm, rv in stats
-                )
-                out, new_running = fused_mlp.fused_mlp_max_t(
-                    x, tuple(params), running, k=transposed_k,
-                    train=train, momentum=BN_MOMENTUM, eps=BN_EPS,
-                    **fused_mlp.call_opts(),
-                )
-                if train:
-                    for (rm, rv), (nm, nv) in zip(stats, new_running):
-                        rm.value = nm
-                        rv.value = nv
-                return out
-            b, c0, mm = x.shape
-            x = x.transpose(0, 2, 1).reshape(
-                b, mm // transposed_k, transposed_k, c0
-            )
-        use_fused = (
-            self.pool_max
-            and not self.is_initializing()
-            and fused_mlp.enabled(x.shape, feats)
-        )
-        if use_fused:
-            params, stats = self._twin_params(x.shape[-1], feats)
-            running = tuple((rm.value, rv.value) for rm, rv in stats)
-            out, new_running = fused_mlp.fused_mlp_max(
-                x, tuple(params), running, train=train,
-                momentum=BN_MOMENTUM, eps=BN_EPS,
-                **fused_mlp.call_opts(),
-            )
-            if train:
-                for (rm, rv), (nm, nv) in zip(stats, new_running):
-                    rm.value = nm
-                    rv.value = nv
-            return out
-
-        # classic per-op path: the plain flax modules (bitwise-identical
-        # to the pre-fusion PointMLP, autodiff gradients included)
-        for i, f in enumerate(feats):
+    def __call__(self, x: jax.Array, train: bool = True) -> jax.Array:
+        for i, f in enumerate(self.features):
             x = nn.Dense(f, name=f"Dense_{i}")(x)
             x = nn.BatchNorm(
                 use_running_average=not train,
@@ -198,19 +58,6 @@ class PointMLP(nn.Module):
             )(x)
             x = nn.relu(x)
         return jnp.max(x, axis=2) if self.pool_max else x
-
-    def _twin_params(self, cin0: int, feats):
-        """Param-twin modules pick up the SAME subtree the classic
-        branch creates (child names match), so every branch shares one
-        param/stats tree and checkpoints round-trip."""
-        cins = (cin0,) + tuple(feats[:-1])
-        params, stats = [], []
-        for i, (cin, f) in enumerate(zip(cins, feats)):
-            kernel, dbias = _DenseParams(f, cin, name=f"Dense_{i}")()
-            scale, bbias, rm, rv = _BNParams(f, name=f"BatchNorm_{i}")()
-            params.append((kernel, dbias, scale, bbias))
-            stats.append((rm, rv))
-        return params, stats
 
 
 class MLPHead(nn.Module):

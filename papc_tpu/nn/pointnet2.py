@@ -1,13 +1,13 @@
-"""PointNet++ set-abstraction / feature-propagation modules (Flax linen).
+"""PointNet++ set-abstraction / feature-propagation modules.
 
 Reference parity: ``PAPC/models/layers/pointnet2_basic_layers.py:179-335``.
 All tensors are channel-last: positions ``[B, N, 3]``, features
 ``[B, N, D]``. Grouped neighborhoods are ``[B, S, K, C]`` and the shared
-MLP is a Dense over the last axis — one MXU matmul per layer over the
+MLP is a Dense over the last axis — one matmul per layer over the
 whole (S*K) super-batch, with max over K as the symmetric pooling.
 
 The reference's SA layers keep their convs in plain python lists (so those
-parameters never register / never train — its ``:185-191`` bug); linen
+parameters never register / never train — its ``:185-191`` bug); module
 registration fixes that by construction.
 """
 
@@ -17,8 +17,8 @@ from typing import Sequence
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
 
+from papc_tpu.nn import core as nn
 from papc_tpu.nn.layers import PointMLP
 from papc_tpu.ops import (
     index_points,
@@ -27,7 +27,6 @@ from papc_tpu.ops import (
     sample_and_group_all,
     three_nn_interpolate,
 )
-from papc_tpu.ops.grouping import sample_and_group_t
 from papc_tpu.ops.sampling import farthest_point_sample
 
 
@@ -49,41 +48,14 @@ class SetAbstraction(nn.Module):
     def __call__(self, xyz, points, train: bool = True):
         if self.group_all:
             new_xyz, grouped = sample_and_group_all(xyz, points)
-        elif self._use_transposed(xyz, points):
-            # channel-sublane grouping: grouped stays [B, C, S·K] so
-            # narrow channels (SA1's C=3) never lane-pad to 128 — the
-            # gather, its scatter backward, and the first MLP layer all
-            # run in this layout (r5 on-chip A/B: SA1 gather fwd+bwd
-            # 4.88 → 1.42 ms/iter; experiments/ab_gather_t.log)
-            new_xyz, grouped_t = sample_and_group_t(
-                self.npoint, self.radius, self.nsample, xyz, points
-            )
-            new_points = PointMLP(self.mlp, pool_max=True)(
-                grouped_t, train, transposed_k=self.nsample
-            )
-            return new_xyz, new_points
         else:
             new_xyz, grouped = sample_and_group(
                 self.npoint, self.radius, self.nsample, xyz, points
             )
-        # fused Dense→BN→ReLU stack + max over K (Pallas on TPU)
-        new_points = PointMLP(self.mlp, pool_max=True)(grouped, train)
+        # Dense→BN→ReLU stack + max over K
+        with jax.named_scope("sa_mlp"):
+            new_points = PointMLP(self.mlp, pool_max=True)(grouped, train)
         return new_xyz, new_points
-
-    def _use_transposed(self, xyz, points) -> bool:
-        """TPU-only fast path (the gather_t kernels don't lower on CPU;
-        init also routes classic so both branches create the same
-        param-twin tree). Shape gate mirrors fused_mlp.enabled_t."""
-        from papc_tpu.ops import fused_mlp
-
-        if self.is_initializing() or jax.default_backend() != "tpu":
-            return False
-        B, N, _ = xyz.shape
-        c0 = 3 + (points.shape[-1] if points is not None else 0)
-        return fused_mlp.enabled_t(
-            (B, c0, self.npoint * self.nsample), self.nsample,
-            tuple(self.mlp),
-        )
 
 
 class SetAbstractionMsg(nn.Module):
@@ -117,7 +89,7 @@ class SetAbstractionMsg(nn.Module):
                 # reference concat order (features, rel_xyz) — :262 —
                 # realized as ONE gather of the pre-concatenated
                 # (features, xyz) + center subtraction on the xyz
-                # lanes (see ops.grouping.sample_and_group)
+                # channels (see ops.grouping.sample_and_group)
                 grouped = index_points(combined, idx)
                 grouped = grouped.at[..., -3:].add(
                     -new_xyz[:, :, None, :]

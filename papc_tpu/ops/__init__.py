@@ -1,5 +1,5 @@
-"""papc_tpu.ops — functional kernel library (pure jnp reference impls +
-Pallas TPU kernels behind one API). All static-shape, all batched, fully
+"""papc_tpu.ops — functional kernel library (pure jnp implementations,
+plus a Pallas-Triton FPS kernel on CUDA, behind one API). All static-shape, all batched, fully
 on-device."""
 
 from papc_tpu.ops.geometry import index_points, pc_normalize, square_distance

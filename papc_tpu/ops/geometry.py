@@ -2,16 +2,15 @@
 
 Functional equivalents of the reference's hot helpers
 (``PAPC/models/layers/pointnet2_basic_layers.py:26-62``), built to stay on
-device: ``square_distance`` is a single matmul expansion that lowers onto the
-MXU, ``index_points`` is a fused one-hot/gather instead of the reference's
-``.numpy()`` round-trip.
+device: ``square_distance`` is a single matmul expansion, ``index_points``
+is one on-device row gather instead of the reference's ``.numpy()``
+round-trip.
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 
 def square_distance(src: jax.Array, dst: jax.Array) -> jax.Array:
@@ -26,13 +25,13 @@ def square_distance(src: jax.Array, dst: jax.Array) -> jax.Array:
 
     Reference parity: ``pointnet2_basic_layers.py:26-40`` (same
     ``-2*src@dstT + |src|^2 + |dst|^2`` expansion; the cross term is the only
-    O(N*M*C) work and it is one MXU matmul).
+    O(N*M*C) work and it is one matmul).
 
-    The matmul runs at ``Precision.HIGHEST``: the TPU default truncates
-    operands to bf16-like precision, which at cloud scale perturbs
-    pairwise distances by up to ~0.14 — enough to flip ball-query
-    membership near the radius (the reference computes this in full f32
-    on CUDA). K=3 makes the extra passes free.
+    The matmul runs at ``Precision.HIGHEST``: a default-precision f32
+    matmul may run in TF32 on the GPU, which keeps about three decimal
+    digits and at cloud scale perturbs pairwise distances enough to flip
+    ball-query membership near the radius (the reference computes this
+    in full f32). K=3 makes the extra passes free.
     """
     cross = jnp.einsum(
         "bnc,bmc->bnm",
@@ -61,69 +60,22 @@ def index_points(points: jax.Array, idx: jax.Array) -> jax.Array:
     Reference parity: ``pointnet2_basic_layers.py:43-62`` — which gathers
     via a numpy round-trip; here it is one on-device row gather.
 
-    Implementation note (fetch-forced on v5e, 2026-08-17): the gather is
-    flattened to a single row gather over ``[B*N, C]`` with absolute row
-    ids. XLA's *batched* gather (``take_along_axis`` with a batch dim)
-    hits a pathological TPU emitter — 2.96 ms and ~6 min compiles at
-    B=32/N=1024/S·K=16k/C=3 — while the identical flat row gather runs
-    0.66 ms and compiles in seconds. Same values, same gradient
-    (scatter-add over rows).
+    The gather is flattened to a single row gather over ``[B*N, C]``
+    with absolute row ids; its gradient is XLA's scatter-add over rows,
+    which runs on atomics on the GPU, so its summation order (and the
+    last bits of a gradient) can change from run to run.
     """
     B = points.shape[0]
     N = points.shape[1]
     C = points.shape[-1]
     batch_shape = idx.shape
-    flat_idx = jnp.clip(idx.reshape(B, -1).astype(jnp.int32), 0, N - 1)
-    if jax.default_backend() == "tpu":
-        gathered = _make_gather_rows_tpu(N)(points, flat_idx)
-    else:
-        gathered = _flat_gather(points, flat_idx)
-    return gathered.reshape(*batch_shape, C)
-
-
-def _flat_gather(points: jax.Array, idx2: jax.Array) -> jax.Array:
-    """``points [B,N,C]`` by pre-clipped ``idx2 [B,S]`` → ``[B,S,C]``."""
-    B, N, C = points.shape
-    rows = idx2 + (jnp.arange(B, dtype=jnp.int32) * N)[:, None]
-    return points.reshape(B * N, C)[rows.reshape(-1)].reshape(B, -1, C)
-
-
-import functools
-
-
-@functools.lru_cache(maxsize=None)
-def _make_gather_rows_tpu(n_rows: int):
-    """Flat row gather whose BACKWARD is the Pallas one-hot-MXU scatter.
-
-    XLA's scatter-add (the autodiff backward of any gather) serializes
-    per-row on TPU — 15.8 ms fetch-forced at the SSG SA2 shape — while
-    the transposed one-hot contraction does the identical sum on the
-    MXU (``papc_tpu.ops.pallas.scatter``). Forward is unchanged. The
-    factory closes over the static row count (pallas needs it static;
-    custom_vjp residuals may only carry arrays).
-    """
-
-    @jax.custom_vjp
-    def gather(points, idx2):
-        return _flat_gather(points, idx2)
-
-    def fwd(points, idx2):
-        return gather(points, idx2), (
-            idx2,
-            jnp.zeros((), points.dtype),
+    with jax.named_scope("gather"):
+        flat_idx = jnp.clip(
+            idx.reshape(B, -1).astype(jnp.int32), 0, N - 1
         )
-
-    def bwd(res, g):
-        idx2, proto = res
-        from papc_tpu.ops.pallas.scatter import scatter_rows_add_pallas
-
-        dpoints = scatter_rows_add_pallas(g, idx2, n_rows).astype(
-            proto.dtype
-        )
-        return dpoints, np.zeros(idx2.shape, jax.dtypes.float0)
-
-    gather.defvjp(fwd, bwd)
-    return gather
+        rows = flat_idx + (jnp.arange(B, dtype=jnp.int32) * N)[:, None]
+        gathered = points.reshape(B * N, C)[rows.reshape(-1)]
+        return gathered.reshape(*batch_shape, C)
 
 
 def pc_normalize(pc: jax.Array) -> jax.Array:

@@ -5,15 +5,6 @@ the full ``[B, S, N]`` index matrix, masks it through TWO numpy round-trips
 and runs a full sort. Here the "first ``nsample`` indices inside the radius"
 semantics are realized with a masked ``lax.top_k`` over negated indices — no
 sort, no host sync, identical results.
-
-Backend selection (fetch-forced on v5e, 2026-08-17,
-``papc_tpu.utils.timing`` K-chain slope — the round-2 "XLA wins below
-N=4096" crossover was an artifact of the broken ``block_until_ready``
-timer): the streaming Pallas kernel wins at every measured size, e.g.
-18× at the SSG SA1 production shape (B=32, N=1024, S=512, K=32:
-3.57 ms → 0.195 ms) and >10× at N=65536. ``backend=None`` selects the
-Pallas kernel whenever the default backend is TPU; the XLA
-matrix+top_k path remains as the CPU / oracle path.
 """
 
 from __future__ import annotations
@@ -31,8 +22,6 @@ def query_ball_point(
     nsample: int,
     xyz: jax.Array,
     new_xyz: jax.Array,
-    *,
-    backend: str | None = None,
 ) -> jax.Array:
     """For each query, the first ``nsample`` point indices within ``radius``.
 
@@ -41,9 +30,6 @@ def query_ball_point(
       nsample: neighbors per ball (static).
       xyz: ``[B, N, 3]`` all points.
       new_xyz: ``[B, S, 3]`` query centers.
-      backend: ``"xla"`` | ``"pallas"`` | None (auto: the VMEM-resident
-        streaming Pallas kernel — ``papc_tpu.ops.pallas.ball_query`` —
-        at every size on TPU; see the module docstring measurements).
 
     Returns:
       ``[B, S, nsample]`` int32 indices. Slots beyond the in-radius count are
@@ -51,25 +37,20 @@ def query_ball_point(
       ``pointnet2_basic_layers.py:119-126``).
     """
     N = xyz.shape[1]
-    if backend is None:
-        use_pallas = jax.default_backend() == "tpu"
-    else:
-        use_pallas = backend == "pallas"
-    if use_pallas:
-        from papc_tpu.ops.pallas.ball_query import query_ball_point_pallas
-
-        return query_ball_point_pallas(radius, nsample, xyz, new_xyz)
-    sqrdists = square_distance(new_xyz, xyz)  # [B, S, N]
-    idx = jnp.arange(N, dtype=jnp.int32)
-    # Out-of-radius points get sentinel N; reference masks with `> radius**2`.
-    cand = jnp.where(sqrdists > radius**2, N, idx[None, None, :])
-    # nsample smallest indices == nsample largest of the negation.
-    neg_top, _ = lax.top_k(-cand, nsample)
-    group_idx = -neg_top  # ascending indices, sentinel N at the tail
-    group_first = group_idx[..., :1]
-    group_idx = jnp.where(group_idx == N, group_first, group_idx)
-    # Degenerate all-empty ball (cannot happen when new_xyz ⊆ xyz): clamp.
-    return jnp.minimum(group_idx, N - 1)
+    with jax.named_scope("ball_query"):
+        sqrdists = square_distance(new_xyz, xyz)  # [B, S, N]
+        idx = jnp.arange(N, dtype=jnp.int32)
+        # Out-of-radius points get sentinel N; reference masks with
+        # `> radius**2`.
+        cand = jnp.where(sqrdists > radius**2, N, idx[None, None, :])
+        # nsample smallest indices == nsample largest of the negation.
+        neg_top, _ = lax.top_k(-cand, nsample)
+        group_idx = -neg_top  # ascending indices, sentinel N at the tail
+        group_first = group_idx[..., :1]
+        group_idx = jnp.where(group_idx == N, group_first, group_idx)
+        # Degenerate all-empty ball (cannot happen when new_xyz ⊆ xyz):
+        # clamp.
+        return jnp.minimum(group_idx, N - 1)
 
 
 def query_ball_point_tiled(
@@ -86,14 +67,7 @@ def query_ball_point_tiled(
     ``lax.map`` so peak memory is ``O(B * query_chunk * N)`` — the
     blockwise treatment of the reference's O(S*N) memory pain point
     (SURVEY §5.7; reference ``pointnet2_basic_layers.py:110-117``).
-
-    When the Pallas kernel would be auto-selected (any size on TPU) it
-    is used directly over the full query set: it streams point tiles
-    through VMEM and never materializes the distance matrix, so the
-    outer chunking would only add ``lax.map`` overhead.
     """
-    if jax.default_backend() == "tpu":
-        return query_ball_point(radius, nsample, xyz, new_xyz)
     B, S, C = new_xyz.shape
     pad = (-S) % query_chunk
     q = jnp.pad(new_xyz, ((0, 0), (0, pad), (0, 0)))
@@ -115,11 +89,9 @@ def knn(k: int, xyz: jax.Array, new_xyz: jax.Array):
     int32 indices. Used by feature propagation (3-NN interpolation,
     reference ``pointnet2_basic_layers.py:305-309``).
 
-    No Pallas variant by design: in every FP call the CANDIDATE set is
-    the coarse level (128–512 points), so the ``[B, S, N_cand]`` matrix
-    stays small even when the query side is the full cloud — the HBM
-    blowup that justifies the ball-query kernel (N candidates) never
-    occurs here.
+    In every FP call the candidate set is the coarse level (128–512
+    points), so the ``[B, S, N_cand]`` matrix stays small even when the
+    query side is the full cloud.
     """
     sqrdists = square_distance(new_xyz, xyz)  # [B, S, N]
     neg_d, idx = lax.top_k(-sqrdists, k)
@@ -151,12 +123,10 @@ def sample_and_group(
     new_xyz = index_points(xyz, fps_idx)  # [B, npoint, 3]
     idx = query_ball_point(radius, nsample, xyz, new_xyz)
     if points is not None:
-        # ONE row gather of the pre-concatenated (xyz, features): two
-        # separate gathers each lane-pad their output (3 → 128 for the
-        # xyz one) and each pay their own scatter-add backward; the
-        # combined form halves the gather traffic both ways. The center
-        # subtraction lands on the xyz lanes post-gather (XLA fuses it
-        # into the gather consumer) — values identical.
+        # ONE row gather of the pre-concatenated (xyz, features): one
+        # gather and one scatter-add backward instead of two. The center
+        # subtraction lands on the xyz channels post-gather (XLA fuses
+        # it into the gather consumer) — values identical.
         combined = jnp.concatenate([xyz, points], axis=-1)
         grouped = index_points(combined, idx)  # [B, S, K, 3+D]
         grouped_xyz = grouped[..., :3]
@@ -169,56 +139,6 @@ def sample_and_group(
     if return_fps:
         return new_xyz, new_points, grouped_xyz, fps_idx
     return new_xyz, new_points
-
-
-def sample_and_group_t(
-    npoint: int,
-    radius: float,
-    nsample: int,
-    xyz: jax.Array,
-    points: jax.Array | None,
-    *,
-    key: jax.Array | None = None,
-    interpret: bool = False,
-):
-    """Channel-sublane :func:`sample_and_group`: grouped output
-    ``[B, 3+D, npoint·nsample]`` instead of ``[B, npoint, nsample, 3+D]``.
-
-    Same FPS/ball-query/center semantics and identical values (up to the
-    gather kernel's ~2^-25 split-accumulation — see
-    ``ops.pallas.gather_t``); the layout difference is the point: the
-    row layout lane-pads C → 128 (42× HBM for SA1's C=3 grouped xyz and
-    a 42×-padded MXU scatter in its backward — measured 4.88 vs 1.42
-    ms/iter fwd+bwd at the SA1 shape, ``experiments/ab_gather_t.log``),
-    while this layout pads C → 8 sublanes and feeds
-    ``fused_mlp.fused_mlp_max_t`` / ``scatter_cols_add_pallas``
-    directly.
-    """
-    B, N, _ = xyz.shape
-    fps_idx = farthest_point_sample(xyz, npoint, key=key)
-    new_xyz = index_points(xyz, fps_idx)  # [B, npoint, 3] (tiny)
-    idx = query_ball_point(radius, nsample, xyz, new_xyz)
-    from papc_tpu.ops.pallas.gather_t import gather_cols
-
-    if points is not None:
-        combined = jnp.concatenate([xyz, points], axis=-1)
-    else:
-        combined = xyz
-    # the [B, N, C] → [B, C, N] transpose is small (the SOURCE, not the
-    # grouped result: ≤ ~17 MB at SA2 scale) and XLA-fused
-    combined_t = combined.transpose(0, 2, 1)
-    grouped_t = gather_cols(combined_t, idx, interpret=interpret)
-    # center the xyz channels: lane-repeat each center K times so the
-    # subtraction stays in the [B, C, M] layout (a [B,3,S,K]-shaped
-    # broadcast would lane-pad K → 128)
-    centers = jnp.repeat(
-        new_xyz.transpose(0, 2, 1), nsample, axis=2
-    )  # [B, 3, npoint*nsample]
-    if points is not None:
-        grouped_t = grouped_t.at[:, :3, :].add(-centers)
-    else:
-        grouped_t = grouped_t - centers
-    return new_xyz, grouped_t
 
 
 def sample_and_group_all(xyz: jax.Array, points: jax.Array | None):

@@ -2,13 +2,13 @@
 
 Computes the same exact quad-intersection areas as the reference's
 numba-CUDA ``devRotateIoU`` suite (``non_max_suppression/nms_gpu.py:
-179-414``), but TPU-shaped: Sutherland–Hodgman halfplane clipping over a
+179-414``), but shaped for XLA: Sutherland–Hodgman halfplane clipping over a
 doubling-slot masked ring — pure elementwise math and static rolls, no
 per-pair sort, no gather, no arctan2 — so the whole [N, K] pair matrix
 compiles to one fused XLA kernel. Everything is static-shape and
 vmappable; no host sync. (The reference's candidate-vertex + angle-sort
-construction is kept in the C++ twin's spirit only; on TPU it cost 8.1 ms
-per 128×128 matrix in the sort/gather paths.)
+construction is kept in the C++ twin's spirit only: its per-pair sort and
+gather are slow paths for XLA.)
 """
 
 from __future__ import annotations
@@ -104,12 +104,11 @@ def rotated_intersection_area(ca: jax.Array, cb: jax.Array) -> jax.Array:
     doubling-slot masked ring (4 → 8 → 16 → 32 → 64 slots): pure
     elementwise ops and STATIC rolls — no per-pair argsort, no batched
     gather, no arctan2 — so XLA fuses the whole pair computation into
-    one kernel. The round-2 candidate-vertex formulation (matching the
-    reference's ``devRotateIoU`` construction) spent 8.1 ms on a mere
-    128×128 matrix because its per-pair ``argsort`` + ``take_along_axis``
-    hit the TPU's pathological sort/gather paths; this form computes the
-    same area (same f32-tolerance oracle tests) ~50× faster and scales
-    to the NMS 1000×1000 matrix. C++ twin: ``papc_cc.cpp`` rbbox_iou
+    one kernel. The candidate-vertex formulation (matching the
+    reference's ``devRotateIoU`` construction) needs a per-pair
+    ``argsort`` + ``take_along_axis``; this form computes the same area
+    (same f32-tolerance oracle tests) without them and scales to the NMS
+    1000×1000 matrix. C++ twin: ``papc_cc.cpp`` rbbox_iou
     (same clipping algorithm, scalar loops).
     """
     batch = jnp.broadcast_shapes(ca.shape[:-2], cb.shape[:-2])

@@ -21,27 +21,13 @@ def greedy_suppress(
     iou: jax.Array,
     valid: jax.Array,
     iou_threshold: float,
-    backend: str | None = None,
 ) -> jax.Array:
     """Greedy NMS keep-mask from a precomputed [K, K] IoU matrix.
 
     Rows/cols are score-ordered (best first). ``valid`` masks real boxes.
-
-    ``backend``: ``"xla"`` | ``"pallas"`` | None (auto: the Pallas
-    VMEM-resident sweep on TPU whenever the padded matrix fits — the
-    K=1000 predict sweep otherwise costs 1000 dispatched ``fori_loop``
-    bodies). Both backends are exact-equal (tested).
+    The sweep is ``K`` sequential rounds of one ``[K]`` mask update.
     """
-    from papc_tpu.ops.pallas.nms import MAX_K_PAD, greedy_suppress_pallas
-
     K = iou.shape[0]
-    if backend is None:
-        use_pallas = jax.default_backend() == "tpu" and K <= MAX_K_PAD
-    else:
-        use_pallas = backend == "pallas"
-    if use_pallas:
-        return greedy_suppress_pallas(iou, valid, iou_threshold)
-
     idx = jnp.arange(K)
     overlap = iou > iou_threshold
 
@@ -73,31 +59,13 @@ def rotate_nms(
     rbboxes: jax.Array,
     valid: jax.Array | None = None,
     iou_threshold: float = 0.5,
-    backend: str | None = None,
 ) -> jax.Array:
-    """Rotated NMS over score-sorted [K, 5] (x, y, w, l, yaw) boxes.
-
-    ``backend``: ``"xla"`` | ``"pallas"`` | None (auto: on TPU the FUSED
-    Pallas sweep — no [K, K] IoU matrix is ever built; each still-kept
-    row clips all K boxes in VMEM, skipping suppressed rows. At the
-    predict workload, K=1000, the XLA matrix alone costs ~61 ms of
-    HBM-bound clip intermediates; the fused sweep replaces matrix+sweep
-    wholesale). Backends agree exactly away from ulp-of-threshold ties
-    (tested).
-    """
-    from papc_tpu.ops.pallas.nms import MAX_K_PAD, rotate_nms_pallas
-
+    """Rotated NMS over score-sorted [K, 5] (x, y, w, l, yaw) boxes:
+    the ``[K, K]`` rotated-IoU matrix, then the greedy sweep."""
     K = rbboxes.shape[0]
     if valid is None:
         valid = jnp.ones((K,), bool)
-    if backend is None:
-        use_fused = (
-            jax.default_backend() == "tpu" and K + (-K) % 128 <= MAX_K_PAD
+    with jax.named_scope("nms"):
+        return greedy_suppress(
+            rotate_iou(rbboxes, rbboxes), valid, iou_threshold
         )
-    else:
-        use_fused = backend == "pallas"
-    if use_fused:
-        return rotate_nms_pallas(rbboxes, valid, iou_threshold)
-    return greedy_suppress(
-        rotate_iou(rbboxes, rbboxes), valid, iou_threshold, backend=backend
-    )

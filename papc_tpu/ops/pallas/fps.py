@@ -1,42 +1,26 @@
-"""Pallas TPU kernel: batch-vectorized farthest point sampling.
+"""Pallas-Triton kernel: farthest point sampling, one program per cloud.
 
-The jnp version (``papc_tpu.ops.sampling``) compiles to an XLA
-while-loop whose body is a handful of tiny ``[B, N]`` HBM-bound ops —
-correct, but each of the npoint iterations pays op dispatch + HBM
-round-trips, and the loop is inherently sequential. Fetch-forced
-measurement (round 3) put the SSG train step at ~32 ms against a
-0.89 ms FLOP floor, almost all of it this loop.
+The plain loop (``papc_tpu.ops.sampling``) compiles to an XLA while-loop
+of ``npoint`` sequential rounds, each a few tiny ``[B, N]`` kernels, so
+it is bound by launch latency (512 + 128 rounds per SSG step). This
+kernel runs the whole selection loop inside one program per cloud, the
+standard PointNet++ CUDA design:
 
-This kernel runs the WHOLE selection loop inside one Pallas program
-per batch block: coordinates and the running min-distance matrix stay
-VMEM-resident for the entire loop, and — the key change from the
-round-2 kernel — each loop iteration advances ALL ``BB`` batch rows at
-once with ``[BB, N]`` VPU ops, instead of one row per sequential grid
-step. At B=32/N=1024 that is 32× fewer sequential iterations for the
-same lane occupancy.
+* the cloud's coordinates and its running min-distance stay on chip for
+  the whole loop (registers; ``N`` padded to a power of two, padded
+  points carry distance -1 so the argmax never picks them);
+* each round loads the last pick's coordinates (three scalar loads that
+  hit L1), updates the min-distance elementwise and takes a block argmax
+  (first index on ties, like ``jnp.argmax``).
 
-Reference analog: ``pointnet2_basic_layers.py:65-95`` — the same loop
-with FOUR host↔device syncs per iteration.
+At 16k points the cloud no longer fits in the register file and spills
+to local memory; that still beat keeping the min-distance in a device
+memory scratch row walked tile by tile (5.13 against 17.0 ms at
+4×16384→2048 on an H100 SXM at a 400 W power limit), so there is one
+variant.
 
-Fetch-forced on v5e (2026-08-17, ``papc_tpu.utils.timing``
-K-chain slope, forward FPS alone, chained through donated input):
-
-| B×N (npoint)      | XLA loop | this kernel | speedup |
-|-------------------|----------|-------------|---------|
-| 32×512 (128)      |  0.71 ms | 0.33 ms     | 2.2×    |
-| 32×1024 (512)     |  5.21 ms | 0.69 ms     | 7.5×    |
-| 8×4096 (1024)     | 10.10 ms | 1.34 ms     | 7.5×    |
-| 4×16384 (2048)    | 37.70 ms | 3.10 ms     | 12.1×   |
-| 1×65536 (4096)    | 88.62 ms | 12.21 ms    | 7.3×    |
-
-``papc_tpu.ops.farthest_point_sample`` auto-selects this kernel on TPU
-at every size (the XLA loop remains as the CPU / oracle path).
-
-On-chip caveat: picks can diverge from the XLA path at ulp-level
-argmax ties (~1 in 16k picks — XLA's FMA rounding can separate two
-distances that are bit-equal under this kernel's and host numpy's
-rounding; where they differ, this kernel agrees with the numpy
-oracle). Interpret mode matches the XLA path bit-for-bit.
+Distances are computed elementwise, never as a matmul, so TF32 cannot
+touch them.
 """
 
 from __future__ import annotations
@@ -47,95 +31,77 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 
-def _fps_kernel(x_ref, y_ref, z_ref, start_ref, out_ref, dist_ref, *,
-                npoint: int):
-    # x/y/z_ref: [BB, N] f32 — one coordinate plane per ref so every op
-    # in the loop is a plain lane-tiled 2D op (no mid-dim slicing)
-    # start_ref: [BB, 1] i32 initial indices; out_ref: [BB, npoint] i32
-    # dist_ref: [BB, N] f32 running min-distance scratch
-    BB, N = x_ref.shape
-    x = x_ref[:]
-    y = y_ref[:]
-    z = z_ref[:]
-    lane = lax.broadcasted_iota(jnp.int32, (BB, N), 1)
-    ocol = lax.broadcasted_iota(jnp.int32, (BB, npoint), 1)
-    dist_ref[:] = jnp.full((BB, N), jnp.inf, jnp.float32)
-
-    def body(i, far):
-        # far: [BB, 1] — the pick made at the end of the previous
-        # iteration (start indices for i=0); record it in column i
-        out_ref[:] = jnp.where(ocol == i, far, out_ref[:])
-        # centroid coords via one-hot masked reductions (dynamic scalar
-        # VMEM loads at arbitrary lane offsets don't lower on TPU);
-        # exact: the mask selects exactly one lane per row
-        sel = lane == far
-        cx = jnp.sum(jnp.where(sel, x, 0.0), axis=1, keepdims=True)
-        cy = jnp.sum(jnp.where(sel, y, 0.0), axis=1, keepdims=True)
-        cz = jnp.sum(jnp.where(sel, z, 0.0), axis=1, keepdims=True)
-        d = (x - cx) ** 2 + (y - cy) ** 2 + (z - cz) ** 2
-        nd = jnp.minimum(dist_ref[:], d)
-        dist_ref[:] = nd
-        # row-wise argmax with first-occurrence ties, as 2D keepdims ops
-        # (matches jnp.argmax in the XLA path bit-for-bit)
-        m = jnp.max(nd, axis=1, keepdims=True)
-        return jnp.min(
-            jnp.where(nd == m, lane, N), axis=1, keepdims=True
-        ).astype(jnp.int32)
-
-    lax.fori_loop(0, npoint, body, start_ref[:])
+def _sq_dist(x, y, z, cx, cy, cz):
+    dx, dy, dz = x - cx, y - cy, z - cz
+    return dx * dx + dy * dy + dz * dz
 
 
-def _batch_block(B: int, N: int) -> int:
-    """Rows per program: keep 3 coordinate planes (double-buffered) +
-    the distance scratch within ~4 MB of VMEM, floor 1."""
-    return min(B, max(1, (2**21) // (16 * N)))
+def _fps_kernel(x_ref, y_ref, z_ref, start_ref, out_ref, *,
+                n: int, npoint: int):
+    # x/y/z_ref: [Np] one cloud, zero-padded; start_ref: [1]; out_ref:
+    # [npoint_p]. Everything stays in registers across the loop.
+    np_ = x_ref.shape[0]
+    x, y, z = x_ref[...], y_ref[...], z_ref[...]
+    lane = lax.broadcasted_iota(jnp.int32, (np_,), 0)
+    dist0 = jnp.where(lane < n, jnp.inf, -1.0).astype(jnp.float32)
+
+    def body(i, carry):
+        far, dist = carry
+        out_ref[i] = far
+        d = _sq_dist(x, y, z, x_ref[far], y_ref[far], z_ref[far])
+        dist = jnp.minimum(dist, d)
+        return jnp.argmax(dist).astype(jnp.int32), dist
+
+    lax.fori_loop(0, npoint, body, (start_ref[0], dist0))
+
+
+def _next_pow2(v: int) -> int:
+    return 1 << max(0, (v - 1).bit_length())
+
+
+def _num_warps(np_: int) -> int:
+    """About 32 registers of cloud state per thread, 4 to 16 warps."""
+    return min(16, max(4, np_ // 256))
 
 
 @functools.partial(jax.jit, static_argnames=("npoint", "interpret"))
-def farthest_point_sample_pallas(
+def farthest_point_sample_triton(
     xyz: jax.Array,
     npoint: int,
-    start_idx: jax.Array | int = 0,
+    start_idx: jax.Array,
     interpret: bool = False,
 ) -> jax.Array:
-    """Pallas FPS: ``xyz [B, N, 3]`` → int32 indices ``[B, npoint]``.
+    """Triton FPS: ``xyz [B, N, 3]``, ``start_idx [B]`` → ``[B, npoint]``.
 
-    Matches :func:`papc_tpu.ops.farthest_point_sample` exactly (same
-    min-distance/argmax recursion, deterministic given ``start_idx``).
+    Same min-distance/argmax recursion as the plain loop in
+    :func:`papc_tpu.ops.sampling.farthest_point_sample`.
     """
     B, N, _ = xyz.shape
-    xyz = xyz.astype(jnp.float32)
-    x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
+    np_ = _next_pow2(max(N, 16))
+    npoint_p = _next_pow2(max(npoint, 16))
+    planes = [
+        jnp.pad(lax.stop_gradient(xyz[..., c]).astype(jnp.float32),
+                ((0, 0), (0, np_ - N)))
+        for c in range(3)
+    ]
     start = jnp.broadcast_to(
-        jnp.asarray(start_idx, jnp.int32).reshape(-1, 1), (B, 1)
-    )
-    BB = _batch_block(B, N)
-    grid = -(-B // BB)
-    Bp = grid * BB
-    if Bp != B:
-        pad = ((0, Bp - B), (0, 0))
-        x, y, z = jnp.pad(x, pad), jnp.pad(y, pad), jnp.pad(z, pad)
-        start = jnp.pad(start, pad)
-
-    plane = pl.BlockSpec((BB, N), lambda g: (g, 0),
-                         memory_space=pltpu.VMEM)
+        jnp.asarray(start_idx, jnp.int32), (B,)
+    ).reshape(B, 1)
+    row = pl.BlockSpec((None, np_), lambda b: (b, 0))
     out = pl.pallas_call(
-        functools.partial(_fps_kernel, npoint=npoint),
-        grid=(grid,),
-        in_specs=[
-            plane,
-            plane,
-            plane,
-            pl.BlockSpec((BB, 1), lambda g: (g, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((BB, npoint), lambda g: (g, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((Bp, npoint), jnp.int32),
-        scratch_shapes=[pltpu.VMEM((BB, N), jnp.float32)],
+        functools.partial(_fps_kernel, n=N, npoint=npoint),
+        grid=(B,),
+        in_specs=[row, row, row, pl.BlockSpec((None, 1), lambda b: (b, 0))],
+        out_specs=pl.BlockSpec((None, npoint_p), lambda b: (b, 0)),
+        out_shape=jax.ShapeDtypeStruct((B, npoint_p), jnp.int32),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(
+            num_warps=_num_warps(np_), num_stages=1
+        ),
         interpret=interpret,
-    )(x, y, z, start)
-    return out[:B]
+        name="fps",
+    )(*planes, start)
+    return out[:, :npoint]

@@ -1,18 +1,16 @@
 """Space-to-depth rewrite of the stride-2 3x3 BEV conv.
 
 The RPN's block1 opens with a stride-2 3x3 conv on the [B, 496, 432, 64]
-BEV canvas (reference ``models/bones/rpn.py:71-90``). On TPU the strided
-backward (input-grad = dilated conv) is pathological: measured 2.11 ms
-fwd+bwd vs 0.66 ms for an equal-FLOP stride-1 conv, and channel-padding
-to 128 made it WORSE (``experiments/profile_conv64.py``).
+BEV canvas (reference ``models/bones/rpn.py:71-90``). The earlier
+accelerator build found the strided backward (input-grad = dilated conv)
+much slower than an equal-FLOP stride-1 conv; whether that holds on the
+GPU is not measured.
 
-Fix: pack 2x2 pixel patches into channels (space-to-depth) and run ONE
-stride-1 2x2 VALID conv with the 3x3 kernel zero-expanded to
-[2, 2, 4C, O] — identical math (on-chip max|err| 1e-6), measured
-2.11 -> 1.25 ms f32 / 1.39 -> 0.70 ms bf16 (``experiments/ab_s2d_conv.py``).
-The transform itself must stay OUT of the hot path (doing it per step
-costs more than it saves), so the BEV scatter writes the s2d canvas
-directly (``ops.voxelize.scatter_to_bev_s2d``).
+The rewrite: pack 2x2 pixel patches into channels (space-to-depth) and
+run ONE stride-1 2x2 VALID conv with the 3x3 kernel zero-expanded to
+[2, 2, 4C, O] — identical math. The transform itself must stay OUT of
+the hot path, so the BEV scatter writes the s2d canvas directly
+(``ops.voxelize.scatter_to_bev_s2d``).
 
 Geometry: the stride-2 conv's pad=1 is absorbed into the patch grid —
 patch (r, s) covers input rows (2r-1, 2r) x cols (2s-1, 2s), giving a

@@ -3,24 +3,18 @@
 The reference implements FPS as a Python loop that syncs the whole cloud to
 numpy on EVERY iteration (``pointnet2_basic_layers.py:65-95`` — npoint
 serialized host round-trips). Here the loop is a ``lax.fori_loop`` compiled
-into the XLA program: the running min-distance vector stays on chip, each
+into the XLA program: the running min-distance vector stays on device, each
 iteration is one gather + one fused elementwise pass + one argmax over
 ``[B, N]``.
 
-Backend selection (fetch-forced on v5e, 2026-08-17 — the earlier
-"XLA wins below N=4096" crossover was an artifact of the broken
-``block_until_ready`` timer): the batch-vectorized Pallas kernel
-(``papc_tpu.ops.pallas.fps``) keeps coordinates + the min-distance
-matrix VMEM-resident for the whole loop and wins at EVERY measured
-size — 2.2× at B=32/N=512, 7.5× at B=32/N=1024 (5.21 ms → 0.69 ms,
-the SSG production shape), 12.1× at N=16384. ``backend=None``
-auto-selects Pallas whenever the default backend is TPU; the XLA loop
-remains as the CPU / oracle path.
-
-On TPU the two backends can diverge at ulp-level argmax ties (~1 pick
-in 16k: XLA's fused-multiply-add rounding can separate two distances
-that are bit-equal under the kernel's — and host numpy's — rounding).
-CPU/interpret semantics match bit-for-bit.
+On CUDA devices the whole loop runs instead as one Pallas-Triton program
+per cloud (:mod:`papc_tpu.ops.pallas.fps`). The choice is made per
+platform at lowering time, by ``fps_p``'s lowering rules: the kernel for
+``cuda``, the plain loop for every other platform. An exported program
+therefore carries the right version for each platform it was lowered for
+(``lax.platform_dependent`` would do the same, but its conditional lowers
+every branch for every platform, and a Triton ``pallas_call`` cannot be
+lowered for the CPU), and no path runs the kernel in interpret mode.
 """
 
 from __future__ import annotations
@@ -28,6 +22,59 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 from jax import lax
+from jax.extend.core import Primitive
+from jax.interpreters import batching, mlir
+
+fps_p = Primitive("papc_fps")
+
+
+def _fps_abstract(xyz, start, *, npoint):
+    return jax.core.ShapedArray((xyz.shape[0], npoint), jnp.int32)
+
+
+def _fps_triton(xyz, start, *, npoint):
+    from papc_tpu.ops.pallas.fps import farthest_point_sample_triton
+
+    return farthest_point_sample_triton(xyz, npoint, start)
+
+
+def _fps_batch(args, dims, *, npoint):
+    """vmap: fold the mapped axis into the cloud axis."""
+    xyz, start = args
+    xd, sd = dims
+    v = xyz.shape[xd] if xd is not batching.not_mapped else start.shape[sd]
+    xyz = (
+        jnp.moveaxis(xyz, xd, 0) if xd is not batching.not_mapped
+        else jnp.broadcast_to(xyz, (v,) + xyz.shape)
+    )
+    start = (
+        jnp.moveaxis(start, sd, 0) if sd is not batching.not_mapped
+        else jnp.broadcast_to(start, (v,) + start.shape)
+    )
+    _, b, n, c = xyz.shape
+    out = fps_p.bind(
+        xyz.reshape(v * b, n, c), start.reshape(v * b), npoint=npoint
+    )
+    return out.reshape(v, b, npoint), 0
+
+
+fps_p.def_abstract_eval(_fps_abstract)
+# eager calls compile the primitive alone, so they too take the
+# lowering rule of the platform they run on
+fps_p.def_impl(lambda xyz, start, *, npoint: jax.jit(
+    lambda x, s: fps_p.bind(x, s, npoint=npoint))(xyz, start))
+batching.primitive_batchers[fps_p] = _fps_batch
+mlir.register_lowering(
+    fps_p,
+    mlir.lower_fun(
+        lambda xyz, start, *, npoint: _fps_loop(xyz, start, npoint),
+        multiple_results=False,
+    ),
+)
+mlir.register_lowering(
+    fps_p, mlir.lower_fun(_fps_triton, multiple_results=False),
+    platform="cuda",
+)
 
 
 def farthest_point_sample(
@@ -47,39 +94,36 @@ def farthest_point_sample(
         ``paddle.randint`` per batch item, ``pointnet2_basic_layers.py:76``).
       start_idx: optional fixed initial index (scalar or ``[B]``); wins over
         ``key``. Defaults to 0 when neither is given (deterministic).
-      backend: ``"xla"`` | ``"pallas"`` | None (auto: Pallas on TPU at
-        every size — see module docstring for measurements).
+      backend: ``"xla"`` (the plain loop) | ``"triton"`` (the Pallas-Triton
+        kernel; CUDA only) | None (chosen per platform by ``fps_p``: the
+        kernel on CUDA, the plain loop elsewhere).
 
     Returns:
       ``[B, npoint]`` int32 indices into ``N``.
     """
     B, N, _ = xyz.shape
-    if backend is None:
-        use_pallas = jax.default_backend() == "tpu"
-    else:
-        use_pallas = backend == "pallas"
-    if use_pallas:
-        from papc_tpu.ops.pallas.fps import farthest_point_sample_pallas
-
-        # same start-index semantics as the XLA path below: explicit
-        # start_idx wins, then a random per-item start from `key`,
-        # else deterministic 0
-        if start_idx is None and key is not None:
-            start_idx = jax.random.randint(
-                key, (B,), 0, N, dtype=jnp.int32
-            )
-        return farthest_point_sample_pallas(
-            xyz, npoint, start_idx=0 if start_idx is None else start_idx
-        )
     if start_idx is not None:
-        farthest0 = jnp.broadcast_to(
-            jnp.asarray(start_idx, dtype=jnp.int32), (B,)
-        )
+        start = jnp.broadcast_to(jnp.asarray(start_idx, jnp.int32), (B,))
     elif key is not None:
-        farthest0 = jax.random.randint(key, (B,), 0, N, dtype=jnp.int32)
+        start = jax.random.randint(key, (B,), 0, N, dtype=jnp.int32)
     else:
-        farthest0 = jnp.zeros((B,), dtype=jnp.int32)
+        start = jnp.zeros((B,), jnp.int32)
 
+    if backend not in (None, "xla", "triton"):
+        raise ValueError(f"unknown FPS backend {backend!r}")
+    # no gradient flows through the integer picks
+    xyz = lax.stop_gradient(xyz.astype(jnp.float32))
+    with jax.named_scope("fps"):
+        if backend == "xla":
+            return _fps_loop(xyz, start, npoint)
+        if backend == "triton":
+            return _fps_triton(xyz, start, npoint=npoint)
+        return fps_p.bind(xyz, start, npoint=npoint)
+
+
+def _fps_loop(xyz: jax.Array, start: jax.Array, npoint: int):
+    """The plain XLA loop: ``npoint`` rounds over ``[B, N]``."""
+    B, N, _ = xyz.shape
     xyz = xyz.astype(jnp.float32)
 
     def body(i, state):
@@ -98,6 +142,6 @@ def farthest_point_sample(
     distance0 = jnp.full((B, N), jnp.inf, dtype=jnp.float32)
     centroids0 = jnp.zeros((B, npoint), dtype=jnp.int32)
     _, _, centroids = lax.fori_loop(
-        0, npoint, body, (distance0, farthest0, centroids0)
+        0, npoint, body, (distance0, start, centroids0)
     )
     return centroids

@@ -1,6 +1,6 @@
 """Device-side (jnp, jittable) voxelization and BEV scatter.
 
-TPU-native replacements for the reference's host-only numba voxelizer
+On-device replacements for the reference's host-only numba voxelizer
 (``point_cloud_ops.py:7-166``) and its numpy-round-trip scatter
 (``models/bones/pillars.py:121-142`` via ``libs/functional.py:21-38``).
 Everything is static-shape: ``max_voxels`` / ``max_points`` bound the
@@ -140,9 +140,8 @@ def scatter_to_bev_batched(
     """Batched BEV scatter → ``[B, ny, nx, C]``.
 
     NOT ``vmap(scatter_to_bev)``: vmapping the indexed-set makes XLA
-    emit a batched scatter whose transpose is a batched gather — the
-    exact form that hits minute-scale TPU compiles and a ~5× slower
-    kernel (see CLAUDE.md). Instead the batch is folded into the row
+    emit a batched scatter whose transpose is a batched gather, a much
+    heavier form to compile and run. Instead the batch is folded into the row
     index (``b·ny·nx + y·nx + x``) so both the forward scatter and its
     transpose gather are FLAT 1-D row operations on a ``[B·ny·nx+1, C]``
     canvas — the sanctioned ``arr.reshape(B*N, C)[rows]`` form.
@@ -206,21 +205,16 @@ def scatter_to_bev_s2d(
     )
 
 
-# How the flat indexed-set canvas write lowers (A/B'd on the composed
-# PointPillars step, experiments/ab_scat5*.log):
+# How the flat indexed-set canvas write lowers:
 #   "set"  — plain ``.at[rows].set`` (XLA scatter)
 #   "uniq" — same + ``mode="drop", unique_indices=True``: rows ARE
 #            unique per sample by construction (one pillar per cell);
 #            dump-row duplicates all write 0.0, so any pick is exact
 #   "invg" — scatter only 24k i32 pillar ids (C× less scatter data),
-#            then build the canvas as ONE flat row gather — turns the
-#            hot write into the sanctioned flat-gather form and its
-#            backward into a flat gather of the cotangent
-# Measured (ab_scat5: isolated fwd+bwd set 4.10 / uniq 1.40 / invg
-# 5.56 ms; ab_scat5c: composed PointPillars scanned step set 15.56 /
-# uniq 13.42 ms bf16, 19.75 / 17.54 f32, loss bit-exact) — without
-# the uniqueness promise XLA serializes the scatter against possible
-# duplicate writes.
+#            then build the canvas as ONE flat row gather
+# "uniq" won the earlier accelerator build's A/B (without the
+# uniqueness promise XLA serializes the scatter against possible
+# duplicate writes); its A/B on the GPU is pending.
 S2D_SCATTER_MODE = "uniq"
 
 

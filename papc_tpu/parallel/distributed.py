@@ -1,11 +1,10 @@
 """Multi-host initialization (DP over DCN).
 
-The reference is single-device only. For papc-tpu, multi-host data
-parallelism is the standard JAX recipe: call :func:`initialize` once per
-process before any device use; after that ``jax.devices()`` spans the
-whole slice/pod and the existing mesh helpers produce global meshes —
-in-slice gradient reductions ride ICI, cross-slice ride DCN, both
-inserted by XLA from the same sharding annotations.
+The reference is single-device only. Here, multi-host data parallelism
+is the standard JAX recipe: call :func:`initialize` once per process
+before any device use; after that ``jax.devices()`` spans every host's
+GPUs and the existing mesh helpers produce global meshes — gradient
+reductions are inserted by XLA from the same sharding annotations.
 """
 
 from __future__ import annotations
@@ -19,8 +18,9 @@ def initialize(
     process_id: int | None = None,
 ):
     """Initialize jax.distributed (no-op if already initialized or when
-    running single-process). On Cloud TPU the arguments are discovered
-    from the environment when omitted."""
+    running single-process). Without a cluster environment JAX cannot
+    discover the arguments: pass ``coordinator_address``
+    (``host:port``), ``num_processes`` and ``process_id``."""
     try:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,

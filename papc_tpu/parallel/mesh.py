@@ -3,8 +3,8 @@
 The reference has NO parallelism (single device only — SURVEY §2.3). Here
 data-parallelism is first-class from day one: a 1-D ``Mesh('data')`` over
 all local devices, batches sharded along it, parameters replicated.
-XLA inserts the gradient ``psum`` over ICI; the same program runs
-unchanged on 1 chip or a slice. A second, optional ``model`` axis is used
+XLA inserts the gradient all-reduce (NCCL between GPUs); the same
+program runs unchanged on 1 device or many. A second, optional ``model`` axis is used
 by the tensor-parallel configs (see ``papc_tpu.parallel.tp``).
 """
 

@@ -39,7 +39,7 @@ def _kernel_spec(shape, n_model: int, min_dim: int) -> P:
     """Column-shard the output-channel (last) axis of a kernel.
 
     Covers Dense ``[in, out]``, Conv1D ``[k, cin, cout]``, Conv2D /
-    ConvTranspose ``[kh, kw, cin, cout]`` — flax puts output channels
+    ConvTranspose ``[kh, kw, cin, cout]`` — ``nn.core`` puts output channels
     last in all of them.
     """
     if (

@@ -3,7 +3,11 @@
 Reference parity: ``libs/tools/checkpoint.py`` — a ``checkpoints.json``
 index mapping model name → latest + all checkpoint paths (:52-113),
 ``latest_checkpoint`` (:25), ``try_restore_latest_checkpoints`` (:142).
-Storage is Orbax; the JSON index keeps the reference's on-disk contract.
+
+A checkpoint is a directory holding ``state.npz``: every leaf of the
+state pytree as a numpy array, keyed by its pytree path. Restoring
+reads the keys of a target pytree of the same structure. The JSON index
+keeps the reference's on-disk contract.
 """
 
 from __future__ import annotations
@@ -12,6 +16,48 @@ import json
 import os
 import shutil
 import signal
+
+import jax
+import numpy as np
+
+_FILE = "state.npz"
+
+
+def write(path: str, tree) -> None:
+    """Write ``tree`` to the checkpoint directory ``path``, replacing
+    any checkpoint there only once the new one is complete."""
+    flat = {
+        jax.tree_util.keystr(k): np.asarray(jax.device_get(v))
+        for k, v in jax.tree_util.tree_flatten_with_path(tree)[0]
+    }
+    tmp = path + ".tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    with open(os.path.join(tmp, _FILE), "wb") as f:
+        np.savez(f, **flat)
+    shutil.rmtree(path, ignore_errors=True)
+    os.rename(tmp, path)
+
+
+def read(path: str, target):
+    """Read the checkpoint at ``path`` into the structure of ``target``;
+    every leaf must be there with the target leaf's shape."""
+    with np.load(os.path.join(path, _FILE)) as data:
+        leaves = []
+        paths, treedef = jax.tree_util.tree_flatten_with_path(target)
+        for k, ref in paths:
+            key = jax.tree_util.keystr(k)
+            if key not in data:
+                raise KeyError(f"checkpoint {path} has no leaf {key}")
+            value = data[key]
+            ref = np.asarray(ref)
+            if value.shape != ref.shape:
+                raise ValueError(
+                    f"checkpoint {path}: {key} has shape {value.shape}, "
+                    f"expected {ref.shape}"
+                )
+            leaves.append(value.astype(ref.dtype))
+    return jax.tree_util.tree_unflatten(treedef, leaves)
 
 
 class DelayedKeyboardInterrupt:
@@ -71,18 +117,14 @@ def save(
     max_to_keep: int = 8,
     keep_latest: bool = True,
 ):
-    """Write an Orbax checkpoint and update the JSON index, GC'ing old
+    """Write a checkpoint and update the JSON index, GC'ing old
     checkpoints beyond ``max_to_keep`` (keep-latest policy by default,
     keep-largest-step otherwise — reference :52-113)."""
-    import orbax.checkpoint as ocp
-
     os.makedirs(model_dir, exist_ok=True)
     name = f"{model_name}-{global_step}"
     path = os.path.abspath(os.path.join(model_dir, name))
     with DelayedKeyboardInterrupt():
-        ckptr = ocp.StandardCheckpointer()
-        ckptr.save(path, state_dict, force=True)
-        ckptr.wait_until_finished()
+        write(path, state_dict)
 
     index = _load_index(model_dir)
     all_ckpts = index["all_ckpts"].setdefault(model_name, [])
@@ -110,10 +152,7 @@ def save(
 def try_restore_latest(model_dir: str, model_name: str, target: dict):
     """Restore the newest checkpoint into ``target`` structure; returns
     (restored_dict | None)."""
-    import orbax.checkpoint as ocp
-
     path = latest_checkpoint(model_dir, model_name)
     if path is None:
         return None
-    ckptr = ocp.StandardCheckpointer()
-    return ckptr.restore(os.path.abspath(path), target)
+    return read(path, target)

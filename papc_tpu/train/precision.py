@@ -2,8 +2,8 @@
 
 The reference ships an fp16 ``MixedPrecisionWrapper`` with an fp32 master
 copy and nan/inf-triggered dynamic loss scaling (``libs/tools/optim.py``).
-On TPU the native low-precision format is bfloat16, whose fp32-sized
-exponent makes loss scaling unnecessary — so the TPU-native design is:
+Here the low-precision format is bfloat16, whose fp32-sized exponent
+makes loss scaling unnecessary — so the design is:
 params and optimizer state stay fp32, compute (activations + grads) runs
 bf16, losses reduce in fp32. A dynamic loss-scale transform is still
 provided for parity/fp16 experiments.

@@ -41,11 +41,8 @@ def _scores_and_labels(
     """preds logits → (score, pred_label) with background = 0
     (reference metrics.py:27-75 semantics).
 
-    ``channel_axis=1`` accepts the TPU-friendly ``[B, C, A]`` layout
-    (class dim on sublanes) — in the default ``[B, A, C]`` layout a
-    C∈{1..4} class axis is lane-padded to 128, which made this update
-    2.5 ms of the r4 PointPillars step (measured: step 32.95 vs 30.47 ms
-    without it, ``experiments/ab_step_s2d.py``)."""
+    ``channel_axis=1`` accepts the ``[B, C, A]`` layout of the
+    detection train step (see ``detector.compute_loss``)."""
     ax = channel_axis
     if encode_background_as_zeros:
         scores = (

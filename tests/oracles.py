@@ -63,3 +63,25 @@ def three_nn_interpolate_np(xyz1, xyz2, points2, eps=1e-8):
         for n in range(N):
             out[b, n] = (points2[b][idx[b, n]] * w[b, n][:, None]).sum(0)
     return out
+
+
+def greedy_nms_np(iou, valid, threshold):
+    """Reference greedy sweep over a score-ordered IoU matrix: each kept
+    box, best first, drops every later box it overlaps above
+    ``threshold``; suppressed boxes suppress nothing."""
+    keep = np.asarray(valid, bool).copy()
+    for i in range(len(keep)):
+        if keep[i]:
+            keep[i + 1:] &= ~(np.asarray(iou[i, i + 1:]) > threshold)
+    return keep
+
+
+def gather_rows_grad_np(g, idx, n_rows):
+    """Gradient of a row gather ``points[b, idx[b, s]]``: scatter-add of
+    the output cotangent ``g [B, S, C]`` into ``[B, n_rows, C]``."""
+    B, S, C = g.shape
+    out = np.zeros((B, n_rows, C), np.float64)
+    for b in range(B):
+        for s in range(S):
+            out[b, idx[b, s]] += g[b, s]
+    return out

@@ -100,7 +100,7 @@ def test_direction_target():
 )
 @pytest.mark.parametrize("use_dir", [True, False])
 def test_loss_ca_layout_matches_bac_oracle(ncls, norm, use_dir):
-    """compute_loss ([B, C, A] sublane layout) vs compute_loss_bac
+    """compute_loss ([B, C, A] layout) vs compute_loss_bac
     (reference [B, A, C] layout oracle): same math, reduction order
     only."""
     from papc_tpu.detect.detector import compute_loss_bac
@@ -252,98 +252,6 @@ def test_predict_score_threshold_filters_all(net_and_vars):
     )
     dets = predict(out, anchors, coder.decode_jnp, cfg)
     assert int(dets["valid"].sum()) == 0
-
-
-def test_pfn_fused_branch_matches_classic():
-    """The PFN final layer's fused SA-MLP route (TPU default at
-    production pillar shapes) shares the classic branch's param/stats
-    tree and reproduces its outputs, running-stat updates, and
-    gradients (impl='jnp' is the numerics mirror of the kernels)."""
-    from papc_tpu.detect.model import PillarFeatureNet
-    from papc_tpu.ops import fused_mlp
-
-    rng = np.random.RandomState(1)
-    Bf, Vf, Pf = 2, 512, 8  # passes the supported() gate (8192 rows)
-    voxels = jnp.asarray(rng.randn(Bf, Vf, Pf, 4), jnp.float32)
-    num_points = jnp.asarray(
-        rng.randint(1, Pf + 1, size=(Bf, Vf)), jnp.int32
-    )
-    coords = jnp.asarray(
-        np.stack(
-            [
-                np.zeros((Bf, Vf), np.int32),
-                rng.randint(0, NY, size=(Bf, Vf)),
-                rng.randint(0, NX, size=(Bf, Vf)),
-            ],
-            axis=-1,
-        ),
-        jnp.int32,
-    )
-    pfn = PillarFeatureNet(num_filters=(64,))
-    variables = pfn.init(KEY, voxels, num_points, coords, train=False)
-    # the decorated input to the final PFNLayer is [B, V, P, 9]
-    assert fused_mlp.supported((Bf, Vf, Pf, 9), (64,))
-
-    classic, mut_c = pfn.apply(
-        variables, voxels, num_points, coords, train=True,
-        mutable=["batch_stats"],
-    )
-    with fused_mlp.override(enable=True, impl="jnp"):
-        fused, mut_f = pfn.apply(
-            variables, voxels, num_points, coords, train=True,
-            mutable=["batch_stats"],
-        )
-    # bf16 inter-pass activations -> bf16-RELATIVE tolerance (PFN
-    # activations are not unit-scale)
-    np.testing.assert_allclose(
-        np.asarray(fused), np.asarray(classic), rtol=2e-2, atol=6e-2
-    )
-    for (pa, a), (pb, b) in zip(
-        jax.tree_util.tree_leaves_with_path(mut_c["batch_stats"]),
-        jax.tree_util.tree_leaves_with_path(mut_f["batch_stats"]),
-    ):
-        assert jax.tree_util.keystr(pa) == jax.tree_util.keystr(pb)
-        # stats come from bf16 pre-activations; PFN inputs are not
-        # unit-scale, so the bound is relative
-        np.testing.assert_allclose(
-            np.asarray(b), np.asarray(a), rtol=1e-2, atol=2e-3
-        )
-
-    # gradients flow through the custom VJP into the SAME param names
-    def loss(params, use_fused):
-        def run():
-            out, _ = pfn.apply(
-                {"params": params,
-                 "batch_stats": variables["batch_stats"]},
-                voxels, num_points, coords, train=True,
-                mutable=["batch_stats"],
-            )
-            return jnp.mean(out * out)
-
-        if use_fused:
-            with fused_mlp.override(enable=True, impl="jnp"):
-                return run()
-        return run()
-
-    gc = jax.grad(lambda p: loss(p, False))(variables["params"])
-    gf = jax.grad(lambda p: loss(p, True))(variables["params"])
-    for (pa, a), b in zip(
-        jax.tree_util.tree_leaves_with_path(gc),
-        jax.tree_util.tree_leaves(gf),
-    ):
-        ref = np.asarray(a)
-        scale = max(1.0, np.abs(ref).max())
-        err = np.abs(np.asarray(b) - ref)
-        assert err.max() <= 6e-2 * scale, (
-            jax.tree_util.keystr(pa), err.max(), scale)
-
-    # eval path
-    ec = pfn.apply(variables, voxels, num_points, coords, train=False)
-    with fused_mlp.override(enable=True, impl="jnp"):
-        ef = pfn.apply(variables, voxels, num_points, coords, train=False)
-    np.testing.assert_allclose(
-        np.asarray(ef), np.asarray(ec), rtol=2e-2, atol=6e-2
-    )
 
 
 def test_predict_bf16_matches_fp32(net_and_vars):

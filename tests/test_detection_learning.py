@@ -5,9 +5,8 @@ crashes (the r1 synthetic yaw-convention bug, invisible to every other
 test, capped this exact metric at ~20).
 
 Slow: ~12 min on CPU — gated behind RUN_SLOW=1. Recorded runs of the
-same recipe on the real TPU chip (docs/LEARNING.md): bev/3d AP@0.5 ≈
-79/76 at 800 steps on 72 held-out GT boxes, rising to ~86/86 by 4000
-steps (CPU: 89/89).
+same recipe (docs/LEARNING.md): bev/3d AP@0.5 ≈ 79/76 at 800 steps on 72
+held-out GT boxes, rising to ~86/86 by 4000 steps (CPU: 89/89).
 
 The val set must carry >= 41 valid GT boxes: the official 41-recall-point
 AP arithmetic (`get_thresholds` + `get_mAP`) structurally caps AP at
@@ -26,12 +25,12 @@ import yaml
 
 pytestmark = pytest.mark.skipif(
     not os.environ.get("RUN_SLOW"),
-    reason="slow (~12 min): set RUN_SLOW=1 to run; recorded TPU runs in "
+    reason="slow (~12 min): set RUN_SLOW=1 to run; recorded runs in "
     "docs/LEARNING.md",
 )
 
 STEPS = 800
-# recorded at 800 steps: TPU bev/3d = 79/76, CPU = 77/68. Floors sit well
+# recorded at 800 steps: bev/3d = 79/76 (earlier build), CPU = 77/68. Floors sit well
 # below the healthy range but far above the ~20 plateau a systematic
 # defect produces (see docs/LEARNING.md)
 BEV_FLOOR = 65.0

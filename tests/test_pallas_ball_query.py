@@ -1,19 +1,12 @@
-"""Pallas ball query vs the jnp reference path — exact index equality
-(interpret mode on CPU; the real-TPU twin run is part of /verify and the
-bench crossover table in ops/grouping.py)."""
+"""Ball query (the plain ``[B, S, N]`` distance + ``top_k`` path, and
+its query-chunked twin) vs the numpy oracle — exact index equality."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
-
-@pytest.fixture(scope="module")
-def mods():
-    import jax.numpy as jnp
-
-    from papc_tpu.ops import grouping
-    from papc_tpu.ops.pallas.ball_query import query_ball_point_pallas
-
-    return jnp, grouping, query_ball_point_pallas
+from papc_tpu.ops import grouping
+from tests.oracles import query_ball_point_np
 
 
 def _clouds(rng, B, N, S):
@@ -28,37 +21,34 @@ def _clouds(rng, B, N, S):
     "B,N,S,nsample,radius",
     [
         (2, 256, 64, 8, 0.5),  # mixed fill levels
-        (1, 300, 70, 16, 0.3),  # non-aligned N/S (padding path)
+        (1, 300, 70, 16, 0.3),  # non-aligned N/S
         (2, 128, 32, 4, 3.0),  # every ball overfull
     ],
 )
-def test_matches_jnp_path(mods, rng, B, N, S, nsample, radius):
-    jnp, grouping, pallas_bq = mods
+def test_matches_jnp_path(rng, B, N, S, nsample, radius):
     xyz, new_xyz = _clouds(rng, B, N, S)
-    want = np.asarray(
+    want = query_ball_point_np(radius, nsample, xyz, new_xyz)
+    got = np.asarray(
         grouping.query_ball_point(
             radius, nsample, jnp.asarray(xyz), jnp.asarray(new_xyz)
         )
     )
-    got = np.asarray(
-        pallas_bq(
+    np.testing.assert_array_equal(got, want)
+    tiled = np.asarray(
+        grouping.query_ball_point_tiled(
             radius, nsample, jnp.asarray(xyz), jnp.asarray(new_xyz),
-            interpret=True,
+            query_chunk=32,
         )
     )
-    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(tiled, want)
 
 
-def test_empty_ball_clamps(mods, rng):
-    """Queries far from every point: jnp path clamps to N-1; the kernel
-    must agree (degenerate case the reference can't hit)."""
-    jnp, grouping, pallas_bq = mods
+def test_empty_ball_clamps(rng):
+    """Queries far from every point (a case the reference cannot hit,
+    since its queries are cloud points): every slot clamps to N-1."""
     xyz = rng.randn(1, 128, 3).astype(np.float32)
     far = np.full((1, 16, 3), 100.0, np.float32)
-    want = np.asarray(
+    got = np.asarray(
         grouping.query_ball_point(0.5, 8, jnp.asarray(xyz), jnp.asarray(far))
     )
-    got = np.asarray(
-        pallas_bq(0.5, 8, jnp.asarray(xyz), jnp.asarray(far), interpret=True)
-    )
-    np.testing.assert_array_equal(got, want)
+    assert (got == 127).all()

@@ -1,15 +1,13 @@
-"""Pallas greedy-NMS sweeps vs the jnp reference (interpret mode on CPU)."""
+"""Greedy NMS sweeps (the plain ``fori_loop`` path) vs the numpy oracle."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from papc_tpu.detect.box_np import rotate_iou_cpu
 from papc_tpu.ops.iou import rotate_iou
-from papc_tpu.ops.nms import greedy_suppress
-from papc_tpu.ops.pallas.nms import (
-    greedy_suppress_pallas,
-    rotate_nms_pallas,
-)
+from papc_tpu.ops.nms import greedy_suppress, rotate_nms
+from tests.oracles import greedy_nms_np
 
 
 def _random_iou(rng, K):
@@ -22,27 +20,25 @@ def _random_iou(rng, K):
 
 @pytest.mark.parametrize("K", [7, 128, 300])
 def test_matches_jnp_reference(rng, K):
-    iou = jnp.asarray(_random_iou(rng, K))
-    valid = jnp.ones((K,), bool)
+    iou = _random_iou(rng, K)
+    valid = np.ones((K,), bool)
     for thr in (0.3, 0.5, 0.9):
-        want = np.asarray(greedy_suppress(iou, valid, thr))
         got = np.asarray(
-            greedy_suppress_pallas(iou, valid, thr, interpret=True)
+            greedy_suppress(jnp.asarray(iou), jnp.asarray(valid), thr)
         )
-        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, greedy_nms_np(iou, valid, thr))
 
 
 def test_valid_mask_respected(rng):
     K = 64
-    iou = jnp.asarray(_random_iou(rng, K))
-    valid = jnp.asarray(rng.rand(K) > 0.3)
-    want = np.asarray(greedy_suppress(iou, valid, 0.5))
+    iou = _random_iou(rng, K)
+    valid = rng.rand(K) > 0.3
     got = np.asarray(
-        greedy_suppress_pallas(iou, valid, 0.5, interpret=True)
+        greedy_suppress(jnp.asarray(iou), jnp.asarray(valid), 0.5)
     )
-    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, greedy_nms_np(iou, valid, 0.5))
     # invalid rows stay invalid
-    assert not np.any(got[~np.asarray(valid)])
+    assert not np.any(got[~valid])
 
 
 def test_suppressed_box_cannot_suppress(rng):
@@ -59,7 +55,7 @@ def test_suppressed_box_cannot_suppress(rng):
         )
     )
     valid = jnp.ones((3,), bool)
-    got = np.asarray(greedy_suppress_pallas(iou, valid, 0.5, interpret=True))
+    got = np.asarray(greedy_suppress(iou, valid, 0.5))
     np.testing.assert_array_equal(got, [True, False, True])
 
 
@@ -81,27 +77,30 @@ def _random_rboxes(rng, K):
 
 @pytest.mark.parametrize("K", [5, 64, 200])
 def test_rotate_nms_fused_matches_matrix_path(rng, K):
-    boxes = jnp.asarray(_random_rboxes(rng, K))
-    valid = jnp.ones((K,), bool)
+    """``rotate_nms`` = the numpy sweep over its rotated-IoU matrix, and
+    that matrix agrees with the host polygon-clipping oracle."""
+    boxes = _random_rboxes(rng, K)
+    valid = np.ones((K,), bool)
+    iou = np.asarray(rotate_iou(jnp.asarray(boxes), jnp.asarray(boxes)))
+    np.testing.assert_allclose(
+        iou, rotate_iou_cpu(boxes, boxes), rtol=1e-3, atol=1e-3
+    )
     for thr in (0.1, 0.5):
-        want = np.asarray(
-            greedy_suppress(rotate_iou(boxes, boxes), valid, thr)
-        )
         got = np.asarray(
-            rotate_nms_pallas(boxes, valid, thr, interpret=True)
+            rotate_nms(jnp.asarray(boxes), jnp.asarray(valid), thr)
         )
-        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, greedy_nms_np(iou, valid, thr))
         if K >= 64:  # big cases must exercise both outcomes
             assert 0 < got.sum() < K
 
 
 def test_rotate_nms_fused_valid_mask(rng):
     K = 48
-    boxes = jnp.asarray(_random_rboxes(rng, K))
-    valid = jnp.asarray(rng.rand(K) > 0.3)
-    want = np.asarray(
-        greedy_suppress(rotate_iou(boxes, boxes), valid, 0.3)
+    boxes = _random_rboxes(rng, K)
+    valid = rng.rand(K) > 0.3
+    iou = np.asarray(rotate_iou(jnp.asarray(boxes), jnp.asarray(boxes)))
+    got = np.asarray(
+        rotate_nms(jnp.asarray(boxes), jnp.asarray(valid), 0.3)
     )
-    got = np.asarray(rotate_nms_pallas(boxes, valid, 0.3, interpret=True))
-    np.testing.assert_array_equal(got, want)
-    assert not np.any(got[~np.asarray(valid)])
+    np.testing.assert_array_equal(got, greedy_nms_np(iou, valid, 0.3))
+    assert not np.any(got[~valid])

@@ -2,7 +2,7 @@
 
 def test_channel_axis_layout_parity():
     """update(channel_axis=1) on [B, C, A] == update on [B, A, C]
-    (the TPU channel-sublane layout used by the detection train step)."""
+    (the layout used by the detection train step)."""
     import jax.numpy as jnp
     import numpy as np
 

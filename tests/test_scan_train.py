@@ -219,96 +219,3 @@ def test_train_with_scan_steps_learns(dataset, tmp_path):
     assert history[-1]["val_loss"] < history[0]["val_loss"] * 1.5
     assert history[-1]["val_metric"] > 0.3
     assert any("loss is" in line for line in logs)
-
-
-def test_detection_scan_with_fused_pfn(rng):
-    """Scanned detection training with the fused PFN route (impl='jnp'
-    numerics mirror): the batch_stats the fused branch writes through
-    the flax mutable mechanism must thread the scan carry exactly like
-    the classic branch's — scan == sequential under the override."""
-    from papc_tpu.detect import builders
-    from papc_tpu.detect.config import (
-        DEFAULT_CONFIG_PATH,
-        cfg_from_yaml_file,
-    )
-    from papc_tpu.detect.train import (
-        make_detection_train_step,
-        make_scan_detection_train_step,
-    )
-    from papc_tpu.ops import fused_mlp
-    from papc_tpu.train.trainer import TrainState
-
-    cfg = cfg_from_yaml_file(DEFAULT_CONFIG_PATH)
-    cfg.VOXEL_GENERATOR.VOXEL_SIZE = [4.32, 4.96, 4]
-    cfg.VOXEL_GENERATOR.MAX_VOXELS = 256
-    vg = builders.build_voxel_generator(cfg.VOXEL_GENERATOR)
-    coder = builders.build_box_coder(cfg.BOX_CODER)
-    gen = cfg.TARGET_ASSIGNER.ANCHOR_GENERATORS[0].anchor_generator_stride
-    gen.strides = [8.64, 9.92, 0.0]
-    gen.offsets = [4.32, -34.72, -1.78]
-    ta = builders.build_target_assigner(cfg.TARGET_ASSIGNER, coder)
-    model = builders.build_network(cfg, vg, ta)
-    loss_cfg = builders.build_loss_config(cfg, ta)
-
-    B, V, P, K = 2, 256, 8, 3  # B*V*P = 4096 -> passes the fused gate
-    grid = vg.grid_size
-    A = (grid[0] // 2) * (grid[1] // 2) * 2
-
-    def one_batch():
-        return {
-            "voxels": jnp.asarray(rng.randn(B, V, P, 4), jnp.float32),
-            "num_points": jnp.asarray(
-                rng.randint(1, P, (B, V)), jnp.int32),
-            "coordinates": jnp.asarray(
-                np.stack([np.zeros((B, V)),
-                          rng.randint(0, grid[1], (B, V)),
-                          rng.randint(0, grid[0], (B, V))], -1),
-                jnp.int32),
-            "anchors": jnp.asarray(np.tile(
-                np.array([0.0, 0, -1, 1.6, 3.9, 1.56, 0], np.float32),
-                (B, A, 1))),
-            "labels": jnp.asarray(rng.randint(-1, 2, (B, A)), jnp.int32),
-            "reg_targets": jnp.asarray(
-                rng.randn(B, A, 7) * 0.1, jnp.float32),
-        }
-
-    batches = [one_batch() for _ in range(K)]
-    stacked = jax.tree_util.tree_map(
-        lambda *xs: jnp.stack(xs), *batches
-    )
-    variables = model.init(
-        jax.random.PRNGKey(0), batches[0]["voxels"],
-        batches[0]["num_points"], batches[0]["coordinates"], train=False,
-    )
-
-    def fresh_state():
-        return TrainState.create(
-            apply_fn=model.apply,
-            params=jax.tree_util.tree_map(jnp.copy, variables["params"]),
-            batch_stats=jax.tree_util.tree_map(
-                jnp.copy, variables.get("batch_stats", {})),
-            tx=builders.build_optimizer(cfg.TRAIN_CONFIG.OPTIMIZER),
-        )
-
-    with fused_mlp.override(enable=True, impl="jnp"):
-        step, init_rm = make_detection_train_step(model, loss_cfg)
-        scan_step = make_scan_detection_train_step(model, loss_cfg)
-        state_a, mk, _ = scan_step(fresh_state(), stacked, init_rm())
-        state_b, rm_b = fresh_state(), init_rm()
-        seq = []
-        for b in batches:
-            state_b, metrics, rm_b = step(state_b, b, rm_b)
-            seq.append(float(metrics["loss"]))
-
-    losses = np.asarray(mk["loss"])
-    assert np.isfinite(losses).all()
-    np.testing.assert_allclose(losses, seq, rtol=5e-4, atol=1e-5)
-    # the fused branch's running stats moved off init and match the
-    # sequential run's
-    pfn_stats_a = state_a.batch_stats["pfn"]["PFNLayer_0"]["BatchNorm_0"]
-    pfn_stats_b = state_b.batch_stats["pfn"]["PFNLayer_0"]["BatchNorm_0"]
-    assert float(jnp.abs(pfn_stats_a["mean"]).max()) > 0
-    np.testing.assert_allclose(
-        np.asarray(pfn_stats_a["mean"]), np.asarray(pfn_stats_b["mean"]),
-        rtol=1e-4, atol=1e-5,
-    )
